@@ -1,0 +1,437 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's dedup checkpoint path on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed 0]
+
+Run from the root of the repository on a machine with a CUDA card and nvcc.
+Phases, each of which raises (exit code 1) on any failure:
+
+1. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+   source, in parallel) and print the build seconds; read the fingerprint
+   kernel's integer operations per word from its SASS (``cuobjdump``);
+2. hold each kernel against its plain torch twin on the card, at exact
+   equality, on its own test shapes; the seed-15 bench wave must give the
+   pinned n_chunks / boundary_checksum (24/956437 at 0.25 MiB, 201/71402112
+   at 2 MiB);
+3. the main path at full size: one decoder layer of Qwen2.5-32B at full
+   width in bf16 (~975 MB, random from ``--seed``) saved, re-saved,
+   perturbed and saved again, then restored, through ``DedupCheckpointer``
+   on a 4-node, 2-replica cluster with 512 KiB fixed chunks; the largest
+   leaf's device cuts are held against ``chunk_cdc(backend="kernel")`` and
+   the host numpy chunker. Every kernel count is set to 0 just before this
+   phase and read just after;
+4. time each kernel and its plain twin at the main path's shapes and
+   compare the whole fingerprint block with the twin.
+
+It prints a ``main_path`` JSON line, a ``kernels`` JSON line, the card's name
+and power limit from nvidia-smi, and last ``{"ok": true, "device": ...}``.
+It exits non-zero without printing a result when torch sees no CUDA device
+or the repository's package is not beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# Qwen2.5-32B (src/repro/configs/qwen2_5_32b.py): dense GQA with QKV bias.
+QWEN2_5_32B = dict(d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128, d_ff=27648, qkv_bias=True)
+
+# H100 SXM peaks: HBM3 bytes/s (NVIDIA data sheet), and 32-bit integer
+# operations/s at instruction issue: 132 SMs x 4 schedulers x 32 lanes at the
+# 1.98 GHz boost clock. The 64 INT32 units per SM are no floor on their own:
+# integer multiply-adds and adds also issue to the 128 FP32/FMA lanes.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
+# Integer operations the CDC kernels need per byte (see the csrc notes): cut
+# mask: gear lookup, shift-add, mask, compare; window hashes: gear lookup,
+# shift-add. Both kernels are bound by bytes, far from these. The
+# fingerprint's count per word is read from the built kernel's SASS
+# (``sass_ops_per_word``); counted from the source it is 44: 4 lanes x
+# (2 multiply-adds + 8 fmix32 steps + 1 accumulate).
+CUT_OPS_PER_BYTE = 4
+HASH_OPS_PER_BYTE = 2
+_INT_ALU = {"IMAD", "VIADD", "IADD3", "IADD", "SHF", "SHL", "SHR", "LOP3", "LEA", "IMUL", "PRMT"}
+
+
+def sass_ops_per_word(sass: str, func: str) -> tuple[float, float]:
+    """Read a kernel's per-word cost from ``cuobjdump -sass`` text.
+
+    ``func``'s inner loop is the span a backward branch closes; each 32-bit
+    load in it is one word. Returns (instructions the loop issues per word,
+    integer ALU operations per word that follow a word's load up to the end
+    of its guarded block, i.e. the arithmetic done on the loaded word)."""
+    body = next(f for f in sass.split("Function : ")[1:] if func in f.split("\n", 1)[0])
+    ins = []
+    for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;/]*);", body):
+        parts = text.split()
+        if parts[0].startswith("@"):
+            parts = parts[1:]
+        ins.append((int(addr, 16), parts[0], parts[1:]))
+    back = [(int(args[0], 16), a) for a, op, args in ins if op == "BRA" and int(args[0], 16) < a]
+    _check(len(back) == 1, f"{func}: {len(back)} backward branches in the SASS, want 1")
+    lo, hi = back[0]
+    loop = [op for a, op, _ in ins if lo <= a <= hi]
+    loads = [i for i, op in enumerate(loop) if op.startswith("LDG")]
+    _check(bool(loads), f"{func}: no global load in the SASS loop")
+    dependent = 0
+    for i in loads:
+        for op in loop[i + 1 :]:
+            if op == "BSYNC" or op.startswith("LDG"):
+                break
+            dependent += op.split(".")[0] in _INT_ALU
+    return len(loop) / len(loads), dependent / len(loads)
+
+
+def decoder_layer_shapes(
+    d_model: int, n_heads: int, n_kv_heads: int, head_dim: int, d_ff: int,
+    qkv_bias: bool, n_layers: int = 1,
+) -> dict:
+    """The parameter tree ``init_decoder`` builds for a dense decoder whose
+    block pattern is one global-attention block, as leaf shapes: blocks
+    stacked on a leading dim of ``n_layers``, embedding and lm_head left out."""
+    L = n_layers
+
+    def dense(d_in: int, d_out: int, bias: bool) -> dict:
+        p = {"w": (L, d_in, d_out)}
+        if bias:
+            p["b"] = (L, d_out)
+        return p
+
+    block = {
+        "norm1": {"scale": (L, d_model)},
+        "attn": {
+            "wq": dense(d_model, n_heads * head_dim, qkv_bias),
+            "wk": dense(d_model, n_kv_heads * head_dim, qkv_bias),
+            "wv": dense(d_model, n_kv_heads * head_dim, qkv_bias),
+            "wo": dense(n_heads * head_dim, d_model, False),
+        },
+        "norm2": {"scale": (L, d_model)},
+        "ffn": {
+            "gate": dense(d_model, d_ff, False),
+            "up": dense(d_model, d_ff, False),
+            "down": dense(d_ff, d_model, False),
+        },
+    }
+    return {"blocks": (block,), "final_norm": {"scale": (d_model,)}, "tail": ()}
+
+
+def materialize(shapes, make):
+    """Replace every shape tuple of a shape tree with ``make(shape)``."""
+    if isinstance(shapes, dict):
+        return {k: materialize(v, make) for k, v in shapes.items()}
+    if isinstance(shapes, tuple) and not all(isinstance(d, int) for d in shapes):
+        return tuple(materialize(v, make) for v in shapes)
+    if isinstance(shapes, tuple) and shapes:
+        return make(shapes)
+    return ()
+
+
+def seed15_wave(buf_bytes: int):
+    """The seed-15 wave of benchmarks/write_path_bench.py::bench_device_cdc."""
+    import numpy as np
+
+    rng = np.random.default_rng(15)
+    weights = [8, 4, 2, 1, 1]
+    sizes = [max(1, buf_bytes * w // sum(weights)) for w in weights]
+    return [rng.integers(0, 256, size=s, dtype=np.uint8) for s in sizes]
+
+
+def _timed(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` on the card (CUDA events, warm)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointConfig, DedupCheckpointer
+    from repro_torch.checkpoint.dedup_ckpt import _leaf_paths
+    from repro_torch.core import ChunkingSpec, DedupCluster
+    from repro_torch.core.chunking import _cdc_candidates, _cdc_cuts, cdc_mask, chunk_cdc
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.cdc import cdc_cut_masks_cuda, cdc_cut_masks_plain, cdc_hashes_cuda, cdc_hashes_plain
+    from repro_torch.kernels.fingerprint import fingerprint_chunks_cuda, fingerprint_chunks_plain
+
+    dev = torch.device("cuda")
+    kernels = (fingerprint_chunks_cuda, cdc_cut_masks_cuda, cdc_hashes_cuda)
+
+    # Per kernel, over every comparison with its twin in phases 2 and 4: the
+    # max |kernel - twin| and the count of elements that differ.
+    err = {"fingerprint": 0, "cdc_cut": 0, "cdc_hash": 0}
+    mismatches = dict.fromkeys(err, 0)
+
+    def compare(kind: str, a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+        """Hold a kernel's output ``a`` against its twin's ``b``, bit for bit."""
+        _check(a.shape == b.shape, f"{what}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+        if a.dtype == torch.uint32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        a64, b64 = a.to(torch.int64), b.to(torch.int64)
+        if a.dtype == torch.int32:
+            a64, b64 = a64 & 0xFFFFFFFF, b64 & 0xFFFFFFFF
+        diff = (a64 - b64).abs()
+        n_diff = int((diff != 0).sum())
+        err[kind] = max(err[kind], int(diff.max()) if diff.numel() else 0)
+        mismatches[kind] += n_diff
+        _check(n_diff == 0, f"{what}: {n_diff} elements differ from the twin")
+
+    # ------------------------------------------------------------ 1. build
+    t0 = time.perf_counter()
+    _build.build_all()
+    for name in _build.SIGNATURES:
+        _build.load(name)
+    print(f"build: {time.perf_counter() - t0:.3f} s for {sorted(_build.SIGNATURES)}")
+    for name, log in sorted(_build.ptxas_reports.items()):
+        regs = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
+        print(f"ptxas {name}: " + " | ".join(regs))
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    fp_sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build._lib_path("fingerprint"))],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    fp_issued_per_word, fp_ops_per_word = sass_ops_per_word(fp_sass, "fp_accumulate")
+    print(f"fp_accumulate SASS: its loop issues {fp_issued_per_word} instructions per word, "
+          f"{fp_ops_per_word} of them integer operations on the loaded word (the bound's count)")
+
+    # ----------------------------------------- 2. kernels vs twins, exact
+    gen = np.random.default_rng(args.seed)
+    for shape in [(1, 128), (2, 129), (5, 511), (8, 512), (13, 1000), (256, 512), (300, 700),
+                  (257, 513), (70, 600), (64, 262272)]:
+        x = torch.from_numpy(gen.integers(0, 2**32, size=shape, dtype=np.uint32)).to(dev)
+        compare("fingerprint", fingerprint_chunks_cuda(x), fingerprint_chunks_plain(x),
+                f"fingerprint kernel at {shape}")
+    for n in (33, 5000, 1 << 24):
+        data = torch.from_numpy(gen.integers(0, 256, size=n, dtype=np.uint8)).to(dev)
+        compare("cdc_hash", cdc_hashes_cuda(data), cdc_hashes_plain(data), f"window-hash kernel at n={n}")
+    wave_kw = dict(mask=cdc_mask(8 * 1024), min_size=4 * 1024, max_size=16 * 1024)
+    for buf, pinned in ((256 * 1024, (24, 956437)), (2 * 1024 * 1024, (201, 71402112))):
+        streams = [torch.from_numpy(s).to(dev) for s in seed15_wave(buf)]
+        for g, p in zip(cdc_cut_masks_cuda(streams, **wave_kw), cdc_cut_masks_plain(streams, **wave_kw)):
+            compare("cdc_cut", g, p, f"cut-mask kernel on the seed-15 wave at {buf} B")
+        res = ops.cdc_cut_and_fingerprint_many(streams, **wave_kw)
+        n_chunks = sum(r[3] for r in res)
+        checksum = sum(int(r[0][: r[1]].to(torch.int64).sum()) for r in res) % (1 << 32)
+        print(f"seed-15 wave {buf} B: n_chunks={n_chunks} boundary_checksum={checksum}")
+        _check((n_chunks, checksum) == pinned, f"seed-15 wave at {buf} B: want {pinned}")
+    torch.cuda.synchronize()
+    print("kernels vs twins: " + json.dumps({"max_abs_err": err, "mismatches": mismatches}))
+
+    # ------------------------------------------------ 3. main path, full size
+    cuda_gen = torch.Generator(device=dev).manual_seed(args.seed)
+    shapes = decoder_layer_shapes(**QWEN2_5_32B)
+    tree = materialize(
+        shapes, lambda s: torch.randn(s, generator=cuda_gen, device=dev, dtype=torch.bfloat16)
+    )
+    cluster = DedupCluster.create(4, replicas=2, chunking=ChunkingSpec("fixed", 512 * 1024))
+    ckpt = DedupCheckpointer(cluster, CheckpointConfig())
+    spec = ckpt.spec
+    torch.cuda.synchronize()
+
+    for k in kernels:
+        k.launches = 0
+    for kind in ops.launch_counts:
+        ops.launch_counts[kind] = 0
+
+    def save(name: str) -> tuple[dict, float, dict, dict]:
+        ops_before = ops.launch_snapshot()
+        k_before = [k.launches for k in kernels]
+        t = time.perf_counter()
+        manifest = ckpt.save(name, tree)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        ops_d = {kind: ops.launch_counts[kind] - ops_before[kind] for kind in ops_before}
+        k_d = {k.__name__: k.launches - b for k, b in zip(kernels, k_before)}
+        return manifest, dt, ops_d, k_d
+
+    n_leaves = 13
+    m1, t_s1, _, _ = save("s1")
+    _check(len(m1["leaves"]) == n_leaves, f"{len(m1['leaves'])} leaves, want {n_leaves}")
+    _check(not any(e["ref"] for e in m1["leaves"]), "s1 must write every leaf")
+    sent_s1 = ckpt.stats["bytes_sent"]
+    m2, t_s2, ops_d2, k_d2 = save("s2")
+    _check(all(e["ref"] for e in m2["leaves"]), "s2 of the same tree must be ref-only")
+    _check(ops_d2 == {"cdc": 1, "fingerprint": 1}, f"s2 launches {ops_d2}")
+    _check(k_d2["cdc_cut_masks_cuda"] == 1 and k_d2["fingerprint_chunks_cuda"] == 1, f"s2 kernels {k_d2}")
+    ffn = tree["blocks"][0]["ffn"]
+    for leaf in (ffn["gate"]["w"], ffn["up"]["w"], ffn["down"]["w"]):
+        flat = leaf.view(-1)
+        idx = torch.randint(0, flat.numel(), (16,), generator=cuda_gen, device=dev)
+        flat[idx] += 1.0
+    m3, t_s3, ops_d3, _ = save("s3")
+    written = sorted(e["key"] for e in m3["leaves"] if not e["ref"])
+    _check(len(written) == 3 and all("['ffn']" in k for k in written), f"s3 wrote {written}")
+    _check(sum(e["ref"] for e in m3["leaves"]) == n_leaves - 3, "s3 must ref 10 leaves")
+    t = time.perf_counter()
+    back = ckpt.restore("s3", like=tree)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t
+    flat_tree = _leaf_paths(tree)
+    flat_back = _leaf_paths(back)
+    _check([k for k, _ in flat_tree] == [k for k, _ in flat_back], "restore changed the tree's keys")
+    for (key, a), (_, b) in zip(flat_tree, flat_back):
+        _check(b.device.type == "cuda" and torch.equal(a.view(torch.int16), b.view(torch.int16)),
+               f"restore of {key} is not bitwise equal")
+    # The largest leaf: fused device cuts == chunk_cdc(backend="kernel") ==
+    # the host numpy chunker.
+    big_key, big = max(flat_tree, key=lambda kv: kv[1].numel())
+    stream = ops.tensor_to_u8(big)
+    cutpos, n_cuts, _, _ = ops.cdc_cut_and_fingerprint(stream, spec=spec)
+    dev_cuts = cutpos[:n_cuts].cpu().numpy().astype(np.int64)
+    data = stream.cpu().numpy().tobytes()
+    host_cuts = np.asarray(_cdc_cuts(_cdc_candidates(data, spec.mask), len(data), spec.min_bytes, spec.max_bytes))
+    _check(np.array_equal(dev_cuts, host_cuts), f"{big_key}: device cuts != host numpy cuts")
+    kernel_chunks = chunk_cdc(data, spec.to_chunking(), backend="kernel")
+    kernel_ends = np.cumsum([len(c) for c in kernel_chunks]) - 1
+    _check(np.array_equal(np.union1d(dev_cuts, [len(data) - 1]), kernel_ends),
+           f"{big_key}: device cuts != chunk_cdc(backend='kernel')")
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    for name, n in launches.items():
+        _check(n > 0, f"{name} was never launched on the main path")
+    print(f"largest leaf {big_key}: {len(data)} B, {int(n_cuts)} cuts equal on device, kernel route and host")
+
+    # --------------------------------------- 4. times at the main path's shapes
+    streams = [ops.tensor_to_u8(a) for _, a in flat_tree]
+    kw = spec.kernel_kwargs()
+    t = time.perf_counter()
+    wave = ops.cdc_cut_and_fingerprint_many(streams, spec=spec)
+    torch.cuda.synchronize()
+    t_wave = time.perf_counter() - t
+    n_chunks = sum(r[3] for r in wave)
+    del wave
+    wave_bytes = sum(int(s.numel()) for s in streams)
+    t = time.perf_counter()
+    rows, _ = ops.cut_wave_rows(streams, **kw)
+    torch.cuda.synchronize()
+    t_rows = time.perf_counter() - t
+    fps = fingerprint_chunks_cuda(rows)
+    # The twin's (C, W, 4) int64 intermediate does not fit at once: compare
+    # and time it over blocks of 64 rows, which cover every row of the wave.
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(0, rows.shape[0], 64):
+        compare("fingerprint", fps[i : i + 64], fingerprint_chunks_plain(rows[i : i + 64]),
+                f"fingerprint kernel in rows {i}..{i + 63} of the wave")
+    torch.cuda.synchronize()
+    fp_plain_ms = (time.perf_counter() - t) * 1e3
+    fp_ms = _timed(lambda: fingerprint_chunks_cuda(rows), 5)
+    c_rows, width = rows.shape
+    fp_bytes = c_rows * width * 4 + c_rows * 16
+    fp_bound_bytes = fp_bytes / HBM_BYTES_PER_S * 1e3
+    fp_bound_ops = fp_ops_per_word * c_rows * width / INT32_OPS_PER_S * 1e3
+    del rows, fps
+
+    cut_ms = _timed(lambda: cdc_cut_masks_cuda(streams, **kw), 5)
+    t = time.perf_counter()
+    plain = cdc_cut_masks_plain(streams, **kw)
+    torch.cuda.synchronize()
+    cut_plain_ms = (time.perf_counter() - t) * 1e3
+    for g, p in zip(cdc_cut_masks_cuda(streams, **kw), plain):
+        compare("cdc_cut", g, p, "cut-mask kernel on the main-path wave")
+    del plain
+    cut_bound_bytes = 2 * wave_bytes / HBM_BYTES_PER_S * 1e3
+    cut_bound_ops = CUT_OPS_PER_BYTE * wave_bytes / INT32_OPS_PER_S * 1e3
+
+    hash_ms = _timed(lambda: cdc_hashes_cuda(stream), 5)
+    t = time.perf_counter()
+    hash_plain = cdc_hashes_plain(stream)
+    torch.cuda.synchronize()
+    hash_plain_ms = (time.perf_counter() - t) * 1e3
+    compare("cdc_hash", cdc_hashes_cuda(stream), hash_plain, "window-hash kernel on the largest leaf")
+    del hash_plain
+    n_big = int(stream.numel())
+    hash_bound_bytes = 5 * n_big / HBM_BYTES_PER_S * 1e3
+    hash_bound_ops = HASH_OPS_PER_BYTE * n_big / INT32_OPS_PER_S * 1e3
+
+    main = {
+        "tree": "Qwen2.5-32B decoder layer, bf16, n_layers 1, no embed/lm_head",
+        "leaves": n_leaves,
+        "tree_bytes": wave_bytes,
+        "fp_rows": c_rows,
+        "chunks": n_chunks,
+        "fp_row_words": width,
+        "save_s": {"s1": t_s1, "s2": t_s2, "s3": t_s3},
+        "restore_s": t_restore,
+        "device_wave_s": t_wave,
+        "cut_and_rows_s": t_rows,
+        "bytes_sent": {"s1": sent_s1, "total": ckpt.stats["bytes_sent"]},
+        "leaves_ref_only": ckpt.stats["leaves_ref_only"],
+        "launches_per_save": {"s2": ops_d2, "s3": ops_d3},
+        "kernel_launches": launches,
+    }
+    print("main_path " + json.dumps(main))
+    rows_out = [
+        {
+            "name": "cdc_cut_masks_cuda", "route": "cuda", "source": "src/repro_torch/csrc/cdc.cu",
+            "replaces": "src/repro/kernels/cdc.py:112", "launches": launches["cdc_cut_masks_cuda"],
+            "mismatches": mismatches["cdc_cut"], "max_abs_err": err["cdc_cut"], "ms": cut_ms, "plain_ms": cut_plain_ms,
+            "bound_ms": max(cut_bound_bytes, cut_bound_ops),
+            "bound_by": "bytes" if cut_bound_bytes >= cut_bound_ops else "operations",
+            "library_ms": None, "shape": f"{len(streams)} streams, {wave_bytes} B",
+        },
+        {
+            "name": "fingerprint_chunks_cuda", "route": "cuda",
+            "source": "src/repro_torch/csrc/fingerprint.cu",
+            "replaces": "src/repro/kernels/fingerprint.py:45",
+            "launches": launches["fingerprint_chunks_cuda"], "mismatches": mismatches["fingerprint"],
+            "max_abs_err": err["fingerprint"], "ms": fp_ms, "plain_ms": fp_plain_ms,
+            "bound_ms": max(fp_bound_bytes, fp_bound_ops),
+            "bound_by": "bytes" if fp_bound_bytes >= fp_bound_ops else "operations",
+            "library_ms": None, "shape": f"({c_rows}, {width}) uint32",
+            "int_ops_per_word": fp_ops_per_word, "issued_per_word": fp_issued_per_word,
+        },
+        {
+            "name": "cdc_hashes_cuda", "route": "cuda", "source": "src/repro_torch/csrc/cdc.cu",
+            "replaces": "src/repro/kernels/cdc.py:48", "launches": launches["cdc_hashes_cuda"],
+            "mismatches": mismatches["cdc_hash"], "max_abs_err": err["cdc_hash"], "ms": hash_ms, "plain_ms": hash_plain_ms,
+            "bound_ms": max(hash_bound_bytes, hash_bound_ops),
+            "bound_by": "bytes" if hash_bound_bytes >= hash_bound_ops else "operations",
+            "library_ms": None, "shape": f"({n_big},) uint8",
+        },
+    ]
+    print(json.dumps({"kernels": rows_out}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
