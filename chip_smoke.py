@@ -1,37 +1,59 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's dedup checkpoint path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the dedup checkpoint
+save, and Qwen2.5-32B prefill and prefix-cache serving at full width.
 
     python3 chip_smoke.py [--seed 0]
 
 Run from the root of the repository on a machine with a CUDA card and nvcc.
-Phases, each of which raises (exit code 1) on any failure:
+float32 products run in full float32 (TF32 is switched off for matmuls and
+cuDNN). Phases, each of which raises (exit code 1) on any failure:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, in parallel) and print the build seconds; read the fingerprint
    kernel's integer operations per word from its SASS (``cuobjdump``);
-2. hold each kernel against its plain torch twin on the card, at exact
+2. hold each dedup kernel against its plain torch twin on the card, at exact
    equality, on its own test shapes; the seed-15 bench wave must give the
    pinned n_chunks / boundary_checksum (24/956437 at 0.25 MiB, 201/71402112
    at 2 MiB);
-3. the main path at full size: one decoder layer of Qwen2.5-32B at full
-   width in bf16 (~975 MB, random from ``--seed``) saved, re-saved,
+3. the checkpoint path at full size: one decoder layer of Qwen2.5-32B at
+   full width in bf16 (~975 MB, random from ``--seed``) saved, re-saved,
    perturbed and saved again, then restored, through ``DedupCheckpointer``
    on a 4-node, 2-replica cluster with 512 KiB fixed chunks; the largest
    leaf's device cuts are held against ``chunk_cdc(backend="kernel")`` and
    the host numpy chunker. Every kernel count is set to 0 just before this
    phase and read just after;
-4. time each kernel and its plain twin at the main path's shapes and
-   compare the whole fingerprint block with the twin.
+4. time each dedup kernel and its plain twin at that path's shapes and
+   compare the whole fingerprint block with the twin;
+5. hold the flash-attention kernel against its plain version on the card:
+   the (causal, window) x (H, K) grid, (40, 8) heads at hd 128, float32 and
+   bfloat16, Sq != Skv and ragged lengths, counting the elements beyond
+   tolerance (``FLASH_RTOL``: relative to each element and to its row's RMS);
+6. the prefill path at full width: Qwen2.5-32B from the port's registry
+   with ``attn_impl="chunked"``, all 64 layers, bf16, random weights from
+   ``--seed`` on the card (65.5 GB); prefill 1 x 8,192 tokens into a
+   8,200-slot cache, then decode 8 tokens. The counts are set to 0 just
+   before the prefill and read after it (64 flash launches) and after the
+   decode (0 more). Layer 0's attention at that shape is held against the
+   plain version and timed beside it and beside PyTorch's
+   ``scaled_dot_product_attention`` (timed only);
+7. the serving path at full width: ``BatchedServer`` on the same model over
+   ``DedupCluster.create(4, chunking=ChunkingSpec("fixed", 64 KiB))`` with
+   ``repro_torch.launch.serve``'s traffic (48 shared prefix tokens, 8 random
+   ones, 8 generated, blocks of 8 tokens, 4 requests), then request 0's
+   prompt again, which must give the same tokens.
 
-It prints a ``main_path`` JSON line, a ``kernels`` JSON line, the card's name
-and power limit from nvidia-smi, and last ``{"ok": true, "device": ...}``.
-It exits non-zero without printing a result when torch sees no CUDA device
-or the repository's package is not beside it.
+It prints ``main_path``, ``prefill`` and ``serving`` JSON lines, a
+``kernels`` JSON line, the card's name and power limit from nvidia-smi, and
+last ``{"ok": true, "device": ...}``. It exits non-zero without printing a
+result when torch sees no CUDA device or the repository's package is not
+beside it.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -59,6 +81,22 @@ INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # (2 multiply-adds + 8 fmix32 steps + 1 accumulate).
 CUT_OPS_PER_BYTE = 4
 HASH_OPS_PER_BYTE = 2
+# bf16 tensor-core peak (dense) of an H100 SXM at its 700 W limit.
+BF16_FLOP_PER_S = 989e12
+# The flash kernel's tolerance: |kernel - plain| <= rtol * (|plain| + the RMS
+# of plain's row over the head dim), per element. The limit scales with the
+# data: late rows of a long causal prefill average thousands of value rows,
+# so their elements are ~0.02 and a fixed floor such as the reference's 3e-2
+# flags only a few of the elements a kernel that drops KV tiles there gets
+# wrong. bfloat16: 1.6e-2 is two bf16 steps at the bottom of a binade, about
+# twice the sound kernel's largest reading (the kernel and the plain version
+# round the output apart, and the kernel rounds P to bf16 for the tensor
+# cores). tools/flash_planted_faults.py plants dropped tiles in the late
+# rows and shows that this check fails them.
+FLASH_RTOL = {"float32": 2e-4, "bfloat16": 1.6e-2}
+PREFILL_TOKENS = 8192
+PREFILL_CACHE = 8200
+DECODE_TOKENS = 8
 _INT_ALU = {"IMAD", "VIADD", "IADD3", "IADD", "SHF", "SHL", "SHR", "LOP3", "LEA", "IMUL", "PRMT"}
 
 
@@ -165,23 +203,17 @@ def _check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
-        return 2
+def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -> list[dict]:
+    """Phases 2-4, the checkpoint path. Prints the ``main_path`` line and
+    returns the dedup kernels' rows of the ``kernels`` line."""
     import numpy as np
+    import torch
 
     from repro_torch.checkpoint import CheckpointConfig, DedupCheckpointer
     from repro_torch.checkpoint.dedup_ckpt import _leaf_paths
     from repro_torch.core import ChunkingSpec, DedupCluster
     from repro_torch.core.chunking import _cdc_candidates, _cdc_cuts, cdc_mask, chunk_cdc
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ops
     from repro_torch.kernels.cdc import cdc_cut_masks_cuda, cdc_cut_masks_plain, cdc_hashes_cuda, cdc_hashes_plain
     from repro_torch.kernels.fingerprint import fingerprint_chunks_cuda, fingerprint_chunks_plain
 
@@ -207,26 +239,8 @@ def main() -> int:
         mismatches[kind] += n_diff
         _check(n_diff == 0, f"{what}: {n_diff} elements differ from the twin")
 
-    # ------------------------------------------------------------ 1. build
-    t0 = time.perf_counter()
-    _build.build_all()
-    for name in _build.SIGNATURES:
-        _build.load(name)
-    print(f"build: {time.perf_counter() - t0:.3f} s for {sorted(_build.SIGNATURES)}")
-    for name, log in sorted(_build.ptxas_reports.items()):
-        regs = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
-        print(f"ptxas {name}: " + " | ".join(regs))
-    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    fp_sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(_build._lib_path("fingerprint"))],
-        capture_output=True, text=True, check=True,
-    ).stdout
-    fp_issued_per_word, fp_ops_per_word = sass_ops_per_word(fp_sass, "fp_accumulate")
-    print(f"fp_accumulate SASS: its loop issues {fp_issued_per_word} instructions per word, "
-          f"{fp_ops_per_word} of them integer operations on the loaded word (the bound's count)")
-
     # ----------------------------------------- 2. kernels vs twins, exact
-    gen = np.random.default_rng(args.seed)
+    gen = np.random.default_rng(seed)
     for shape in [(1, 128), (2, 129), (5, 511), (8, 512), (13, 1000), (256, 512), (300, 700),
                   (257, 513), (70, 600), (64, 262272)]:
         x = torch.from_numpy(gen.integers(0, 2**32, size=shape, dtype=np.uint32)).to(dev)
@@ -249,7 +263,7 @@ def main() -> int:
     print("kernels vs twins: " + json.dumps({"max_abs_err": err, "mismatches": mismatches}))
 
     # ------------------------------------------------ 3. main path, full size
-    cuda_gen = torch.Generator(device=dev).manual_seed(args.seed)
+    cuda_gen = torch.Generator(device=dev).manual_seed(seed)
     shapes = decoder_layer_shapes(**QWEN2_5_32B)
     tree = materialize(
         shapes, lambda s: torch.randn(s, generator=cuda_gen, device=dev, dtype=torch.bfloat16)
@@ -282,7 +296,7 @@ def main() -> int:
     sent_s1 = ckpt.stats["bytes_sent"]
     m2, t_s2, ops_d2, k_d2 = save("s2")
     _check(all(e["ref"] for e in m2["leaves"]), "s2 of the same tree must be ref-only")
-    _check(ops_d2 == {"cdc": 1, "fingerprint": 1}, f"s2 launches {ops_d2}")
+    _check(ops_d2 == {"cdc": 1, "fingerprint": 1, "flash": 0}, f"s2 launches {ops_d2}")
     _check(k_d2["cdc_cut_masks_cuda"] == 1 and k_d2["fingerprint_chunks_cuda"] == 1, f"s2 kernels {k_d2}")
     ffn = tree["blocks"][0]["ffn"]
     for leaf in (ffn["gate"]["w"], ffn["up"]["w"], ffn["down"]["w"]):
@@ -421,6 +435,350 @@ def main() -> int:
             "library_ms": None, "shape": f"({n_big},) uint8",
         },
     ]
+    return rows_out
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the flash kernel's mask keeps visible."""
+    import numpy as np
+
+    qpos = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1, np.int64)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_bound_ms(q, k, causal: bool, window: int) -> tuple[float, float]:
+    """(operations, bytes) lower bounds in ms of one flash call: 4 * hd FLOP
+    per visible pair and query head over the bf16 tensor-core peak; q, k, v
+    read once and the output written once over the HBM rate."""
+    b, sq, h, hd = q.shape
+    flop = 4 * b * h * hd * attention_pairs(sq, k.shape[1], causal, window)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return flop / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+class FlashCheck:
+    """Holds the flash kernel against its plain version and keeps, over
+    every comparison, the count of elements beyond ``FLASH_RTOL`` (NaN
+    included), the max |kernel - plain| and the max ratio of the error to
+    the limit's scale (|plain| + row RMS) per dtype. ``strict`` raises at
+    the first comparison with an element beyond; otherwise the comparisons
+    that failed are listed in ``failed``. Its own launches are subtracted
+    from no path's count: the paths' counts are read before and after their
+    runs only."""
+
+    def __init__(self, strict: bool = True):
+        self.strict = strict
+        self.mismatches = 0
+        self.cases = 0
+        self.failed: list[tuple[str, int]] = []
+        self.max_abs_err = {"float32": 0.0, "bfloat16": 0.0}
+        self.max_err_ratio = {"float32": 0.0, "bfloat16": 0.0}
+
+    def __call__(self, q, k, v, *, causal: bool, window: int, what: str):
+        import torch
+
+        from repro_torch.kernels.flash_attn import flash_attention_cuda, flash_attention_plain
+
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        exp = flash_attention_plain(q, k, v, causal=causal, window=window)
+        _check(got.shape == exp.shape and got.dtype == q.dtype, f"{what}: {got.shape} {got.dtype}")
+        dt = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+        ratio = flash_err_ratio(got, exp)
+        n_bad = int((~(ratio <= FLASH_RTOL[dt])).sum())
+        self.cases += 1
+        self.mismatches += n_bad
+        self.max_abs_err[dt] = max(self.max_abs_err[dt], float((got.float() - exp.float()).abs().max()))
+        self.max_err_ratio[dt] = max(self.max_err_ratio[dt], float(ratio.max()))
+        if n_bad:
+            self.failed.append((what, n_bad))
+        _check(not (self.strict and n_bad), f"{what}: {n_bad} elements beyond tolerance {FLASH_RTOL[dt]}")
+        return got
+
+
+def flash_err_ratio(got, exp):
+    """|got - exp| / (|exp| + the RMS of exp's row over the last dim), in
+    float32; 0 where the two are equal, inf where only exp's row is 0."""
+    import torch
+
+    e = exp.float()
+    d = (got.float() - e).abs()
+    scale = e.abs() + e.square().mean(dim=-1, keepdim=True).sqrt()
+    return torch.where(d == 0, 0.0, d / scale)
+
+
+def flash_grid_phase(check: FlashCheck, gen) -> None:
+    """Phase 5: the kernel against its plain version on the card."""
+    import torch
+
+    def qkv(sq, skv, h, kh, hd, dtype):
+        return [torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+                for shape in ((1 if sq > 256 else 2, sq, h, hd), (1 if sq > 256 else 2, skv, kh, hd),
+                              (1 if sq > 256 else 2, skv, kh, hd))]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal, window in ((True, 0), (True, 64), (False, 0)):
+            for h, kh in ((4, 4), (4, 2), (8, 1)):
+                check(*qkv(256, 256, h, kh, 32, dtype), causal=causal, window=window,
+                      what=f"flash {dtype} causal={causal} window={window} H={h} K={kh}")
+        for sq, skv, h, kh, hd, causal, window in (
+            (700, 700, 40, 8, 128, True, 0), (64, 256, 4, 2, 32, False, 0), (300, 100, 4, 2, 64, True, 64),
+            (1000, 1000, 8, 2, 64, True, 0), (4097, 4097, 8, 2, 128, True, 0), (4097, 1000, 8, 2, 128, True, 64),
+        ):
+            check(*qkv(sq, skv, h, kh, hd, dtype), causal=causal, window=window,
+                  what=f"flash {dtype} Sq={sq} Skv={skv} H={h} K={kh} hd={hd} causal={causal} window={window}")
+    torch.cuda.synchronize()
+
+
+def device_profile(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: its wall ms (profiler on),
+    the summed device time of the CUDA kernels it ran, the idle share of
+    the device over the wall time, and the five kernels with the most
+    device time. ``device_ms`` is None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+        kernels.append((us / 1e3, e.count, e.key[:90]))
+    device_ms = sum(k[0] for k in kernels) if kernels else None
+    return {
+        "wall_ms": wall_ms, "device_ms": device_ms, "kernels": sum(k[1] for k in kernels),
+        "idle_share": None if device_ms is None else 1 - device_ms / wall_ms,
+        "top": [[name, ms, n] for ms, n, name in sorted(kernels, reverse=True)[:5]],
+    }
+
+
+def layer0_qkv(params, cfg, tokens):
+    """Layer 0's post-rope q, k, v at the prefill's shape, as ``mha`` makes them."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    blk = params.blocks[0]
+    b, s = tokens.shape
+    hd = cfg.resolved_head_dim
+    with torch.no_grad():
+        h = L.rms_norm(blk.norm1, L.embed(params.embed, tokens), cfg.norm_eps)
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        q = L.apply_rope(L.dense(blk.attn.wq, h).reshape(b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
+        k = L.apply_rope(L.dense(blk.attn.wk, h).reshape(b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+        v = L.dense(blk.attn.wv, h).reshape(b, s, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def prefill_phase(model, params, check: FlashCheck, gen) -> tuple[dict, dict]:
+    """Phase 6: full-width prefill and decode. Returns the ``prefill`` line
+    and the flash kernel's row of the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attn import flash_attention_cuda, flash_attention_plain
+
+    cfg = model.cfg
+    dev = model.device
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_TOKENS), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    flash_attention_cuda.launches = 0
+    for kind in ops.launch_counts:
+        ops.launch_counts[kind] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    logits, caches = model.prefill(params, {"tokens": tokens}, cache_len=PREFILL_CACHE)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t
+    prefill_launches = flash_attention_cuda.launches
+    _check(prefill_launches == cfg.n_layers, f"prefill launched the flash kernel {prefill_launches} times")
+    _check(tuple(logits.shape) == (1, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+           f"prefill logits {tuple(logits.shape)} not finite")
+    kshape = tuple(caches[0][0]["k"].shape)
+    _check(kshape == (cfg.n_layers, 1, PREFILL_CACHE, cfg.n_kv_heads, cfg.resolved_head_dim), f"cache {kshape}")
+    toks = [int(torch.argmax(logits[0, -1]))]
+    t = time.perf_counter()
+    for i in range(DECODE_TOKENS):
+        step = torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev)
+        logits, caches = model.decode_step(params, caches, step, PREFILL_TOKENS + i)
+        toks.append(int(torch.argmax(logits[0, -1])))
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t
+    _check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    decode_launches = flash_attention_cuda.launches - prefill_launches
+    _check(decode_launches == 0, f"decode launched the flash kernel {decode_launches} times")
+    peak = torch.cuda.max_memory_allocated()
+
+    # Where the time goes: the first 4 decode steps again (same tokens and
+    # positions, so the same cache entries are rewritten) and one more
+    # prefill, each under the profiler. These runs are outside the counts.
+    def decode4():
+        for i in range(4):
+            step = torch.tensor([[toks[i]]], dtype=torch.int32, device=dev)
+            out, _ = model.decode_step(params, caches, step, PREFILL_TOKENS + i)
+            int(torch.argmax(out[0, -1]))
+
+    decode_profile = device_profile(decode4)
+    del logits, caches
+    torch.cuda.empty_cache()
+    prefill_profile = device_profile(lambda: model.prefill(params, {"tokens": tokens}, cache_len=PREFILL_CACHE))
+    torch.cuda.empty_cache()
+
+    # Layer 0's attention at the path's shape: kernel, plain version, library.
+    q, k, v = layer0_qkv(params, cfg, tokens)
+    check(q, k, v, causal=True, window=0, what="flash on layer 0 of the prefill")
+    ms = _timed(lambda: flash_attention_cuda(q, k, v), 5)
+    plain_ms = _timed(lambda: flash_attention_plain(q, k, v), 2)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    library_ms = _timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 5)
+    ops_ms, bytes_ms = flash_bound_ms(q, k, True, 0)
+    del q, k, v, qt, kt, vt
+
+    weight_bytes = sum(p.numel() * p.element_size() for n, p in params.named_parameters() if not n.startswith("embed"))
+    kv_bytes = 2 * cfg.n_layers * PREFILL_CACHE * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    block_params = sum(p.numel() for p in params.blocks.parameters())
+    prefill_flop = 2 * block_params * PREFILL_TOKENS + cfg.n_layers * 4 * cfg.n_heads * cfg.resolved_head_dim * \
+        attention_pairs(PREFILL_TOKENS, PREFILL_TOKENS, True, 0)
+    line = {
+        "model": f"{cfg.arch_id}, attn_impl {cfg.attn_impl}, {cfg.n_layers} layers, {cfg.param_dtype}, random weights",
+        "tokens": PREFILL_TOKENS, "cache_len": PREFILL_CACHE, "batch": 1,
+        "prefill_s": t_prefill, "prefill_floor_s": prefill_flop / BF16_FLOP_PER_S,
+        "decode_tokens": DECODE_TOKENS, "decode_ms_per_token": t_decode / DECODE_TOKENS * 1e3,
+        "decode_floor_ms_weights": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "decode_floor_ms_weights_and_kv": (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+        "weight_bytes": weight_bytes, "peak_memory_bytes": peak,
+        "flash_launches": {"prefill": prefill_launches, "decode": decode_launches},
+        "profile_prefill": prefill_profile, "profile_decode_4_steps": decode_profile,
+    }
+    row = {
+        "name": "flash_attention_cuda", "route": "cuda", "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn.py:32", "launches": prefill_launches,
+        "mismatches": check.mismatches, "max_abs_err": max(check.max_abs_err.values()),
+        "max_abs_err_by_dtype": check.max_abs_err, "max_err_ratio": check.max_err_ratio,
+        "rtol": FLASH_RTOL, "cases": check.cases,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": library_ms,
+        "shape": f"q (1, {PREFILL_TOKENS}, {cfg.n_heads}, {cfg.resolved_head_dim}) bf16, k/v "
+                 f"(1, {PREFILL_TOKENS}, {cfg.n_kv_heads}, {cfg.resolved_head_dim}), causal",
+    }
+    return line, row
+
+
+def serve_phase(model, params, seed: int) -> dict:
+    """Phase 7: ``BatchedServer`` at full width with launch/serve.py's
+    traffic. Returns the ``serving`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ChunkingSpec, DedupCluster
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.serving import BatchedServer, ServeConfig
+
+    shared_prefix, suffix, gen_tokens, n_requests = 48, 8, 8, 4
+    cluster = DedupCluster.create(4, chunking=ChunkingSpec("fixed", 64 * 1024))
+    srv = BatchedServer(model, params, cluster, ServeConfig(max_len=shared_prefix + 64, block_tokens=8))
+    rng = np.random.default_rng(seed)
+    shared = [int(t) for t in rng.integers(0, model.cfg.vocab, shared_prefix)]
+    prompts = [shared + [int(t) for t in rng.integers(0, model.cfg.vocab, suffix)] for _ in range(n_requests)]
+    flash_attention_cuda.launches = 0
+    requests = []
+    for i, prompt in enumerate(prompts + [prompts[0]]):
+        t = time.perf_counter()
+        r = srv.handle(prompt, gen_tokens=gen_tokens)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        requests.append({"seconds": dt, "reused_tokens": r["reused_tokens"],
+                         "computed_tokens": r["computed_tokens"], "tokens": r["tokens"]})
+        want = 0 if i == 0 else shared_prefix
+        _check(r["reused_tokens"] == want, f"request {i} reused {r['reused_tokens']} tokens, want {want}")
+    _check(requests[-1]["tokens"] == requests[0]["tokens"], "request 0's prompt again gave other tokens")
+    computed = sum(r["computed_tokens"] for r in requests)
+    seconds = sum(r["seconds"] for r in requests)
+    s = srv.kv.stats
+    return {
+        "model": f"{model.cfg.arch_id}, {model.cfg.n_layers} layers, {model.cfg.param_dtype}",
+        "cluster": "4 nodes, fixed 64 KiB chunks",
+        "traffic": f"{shared_prefix} shared + {suffix} random tokens, {gen_tokens} generated, blocks of 8, "
+                   f"{n_requests} requests + request 0 again",
+        "requests": requests, "decode_tokens_per_s": computed / seconds,
+        "hit_rate": s.hit_rate, "tokens_reused": s.tokens_reused,
+        "space_savings": cluster.space_savings(), "flash_launches": flash_attention_cuda.launches,
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # ------------------------------------------------------------ 1. build
+    t0 = time.perf_counter()
+    _build.build_all()
+    for name in _build.SIGNATURES:
+        _build.load(name)
+    print(f"build: {time.perf_counter() - t0:.3f} s for {sorted(_build.SIGNATURES)}")
+    for name, log in sorted(_build.ptxas_reports.items()):
+        regs = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
+        print(f"ptxas {name}: " + " | ".join(regs))
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    fp_sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build._lib_path("fingerprint"))],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    fp_issued_per_word, fp_ops_per_word = sass_ops_per_word(fp_sass, "fp_accumulate")
+    print(f"fp_accumulate SASS: its loop issues {fp_issued_per_word} instructions per word, "
+          f"{fp_ops_per_word} of them integer operations on the loaded word (the bound's count)")
+
+    rows_out = dedup_phases(args.seed, fp_ops_per_word, fp_issued_per_word)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------- 5. flash kernel vs plain version
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    check = FlashCheck()
+    flash_grid_phase(check, gen)
+    print("flash vs plain: " + json.dumps({"cases": check.cases, "mismatches": check.mismatches,
+                                           "max_abs_err": check.max_abs_err,
+                                           "max_err_ratio": check.max_err_ratio, "rtol": FLASH_RTOL}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ 6. prefill at full width, 64 layers
+    model = build_model(dataclasses.replace(get_config("qwen2.5-32b"), attn_impl="chunked"))
+    t = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    print(f"init: {time.perf_counter() - t:.3f} s for {sum(p.numel() for p in params.parameters())} parameters")
+    prefill, flash_row = prefill_phase(model, params, check, gen)
+    print("prefill " + json.dumps(prefill))
+
+    # --------------------------------------------- 7. serving at full width
+    print("serving " + json.dumps(serve_phase(model, params, args.seed)))
+    rows_out.append(flash_row)
     print(json.dumps({"kernels": rows_out}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -39,6 +39,12 @@ SIGNATURES = {
             _P, _P, _P, _P,
         ],
     },
+    "flash_attn": {
+        "flash_attn_launch": [
+            _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+            ctypes.POINTER(_I64), ctypes.c_float, ctypes.c_int, _I64, ctypes.c_int, _P,
+        ],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,4 @@
-"""Public wrappers over the dedup kernels.
+"""Public wrappers over the port's kernels (dedup and attention).
 
 Every wrapper dispatches on the device of the tensors it is given: a CUDA
 tensor goes through the hand-written CUDA kernels (``csrc/``) or raises, a
@@ -14,12 +14,13 @@ import torch
 
 from repro_torch.core.fingerprint import Fingerprint, device_fp
 from repro_torch.kernels.cdc import cdc_cut_masks_cuda, cdc_hashes_cuda
+from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.kernels.fingerprint import fingerprint_chunks_cuda
 
 # Semantic launch counters: one increment per wrapper call, whichever route
 # it takes, so the one-launch-per-wave contract is assertable on the CPU
 # too. The CUDA kernels' own counts are ``<wrapper>_cuda.launches``.
-launch_counts = {"cdc": 0, "fingerprint": 0}
+launch_counts = {"cdc": 0, "fingerprint": 0, "flash": 0}
 
 
 def _count_launch(kind: str) -> None:
@@ -53,6 +54,24 @@ def fingerprint_chunks(words: torch.Tensor) -> torch.Tensor:
     """(n_chunks, n_words) uint32 -> (n_chunks, 4) uint32."""
     _count_launch("fingerprint")
     return fingerprint_chunks_cuda(words)
+
+
+def flash_attention(
+    q: torch.Tensor,            # (B, Sq, H, hd)
+    k: torch.Tensor,            # (B, Skv, K, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Fused attention, ``scale = 1/sqrt(hd)``. Returns (B, Sq, H, hd).
+
+    A CUDA tensor runs the hand-written kernel (``csrc/flash_attn.cu``) or
+    raises; a CPU tensor takes the plain chunked attention. The JAX
+    package's ``use_pallas`` switch and its 24k ``Skv`` cap (a TPU VMEM
+    limit) are gone: the kernel streams K/V and takes any length."""
+    _count_launch("flash")
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
 def tensor_to_u32(x: torch.Tensor) -> torch.Tensor:

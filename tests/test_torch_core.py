@@ -105,6 +105,8 @@ def test_batched_writes_and_delete_match_reference():
 def test_port_imports_no_jax_and_no_reference_package():
     code = (
         "import sys, repro_torch, repro_torch.checkpoint, repro_torch.core, chip_smoke\n"
+        "import repro_torch.configs, repro_torch.models.convert, repro_torch.serving, repro_torch.launch.serve\n"
+        "import repro_torch.kernels.flash_attn\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

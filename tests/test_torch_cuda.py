@@ -5,19 +5,31 @@ them on a machine with an H100 (which needs no JAX):
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Outputs are integers, so the tolerance is 0 everywhere.
+The dedup kernels' outputs are integers, so their tolerance is 0. The
+flash-attention kernel is held to chip_smoke.py's limit (``FLASH_RTOL``,
+``flash_err_ratio``): per element, |kernel - plain| <= rtol * (|plain| +
+the RMS of plain's row over the head dim), rtol 2e-4 in float32 and 1.6e-2
+in bfloat16, with TF32 off so float32 products run in full float32. The
+limit scales with the data, so it still bites on the late rows of long
+causal inputs, whose elements are small.
 """
+
+import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config
 from repro_torch.core import ChunkingSpec, DedupCluster
 from repro_torch.core.chunking import cdc_mask, chunk_cdc
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.cdc import cdc_cut_masks_cuda, cdc_hashes_cuda, gear_values
 from repro_torch.kernels.fingerprint import fingerprint_chunks_cuda
+from repro_torch.kernels.flash_attn import flash_attention_cuda, flash_attention_plain
 
 # (n, target, min, max) of the 8-spec device-cut sweep, plus one stream of
 # the checkpoint's own geometry (512K target, 256K..1M chunks).
@@ -38,6 +50,8 @@ SWEEP = [
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -133,3 +147,131 @@ def test_checkpointer_on_card(cuda):
     assert (ckpt.stats["cdc_launches"], ckpt.stats["fp_launches"]) == (2, 2)
     back = ckpt.restore("s2", like=tree)
     assert torch.equal(back["w"], tree["w"])
+
+
+def _qkv(shape_q, shape_kv, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in (shape_q, shape_kv, shape_kv))
+    return [t.to(device=device, dtype=dtype) for t in (q, k, v)]
+
+
+_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+
+
+def _flash_close(q, k, v, **kw):
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, **kw)
+    assert flash_attention_cuda.launches == before + 1
+    exp = flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    rtol = chip_smoke.FLASH_RTOL["bfloat16" if q.dtype == torch.bfloat16 else "float32"]
+    n_bad = int((~(chip_smoke.flash_err_ratio(got, exp) <= rtol)).sum())
+    assert n_bad == 0, f"{n_bad} of {exp.numel()} elements beyond the limit"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+@pytest.mark.parametrize("h,kh", [(4, 4), (4, 2), (8, 1)])
+def test_flash_kernel_grid_matches_plain(cuda, dtype, causal, window, h, kh):
+    q, k, v = _qkv((2, 256, h, 32), (2, 256, kh, 32), dtype, h * 10 + kh, cuda)
+    _flash_close(q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (1000, 1000, True, 0), (4097, 4097, True, 0), (64, 256, False, 0),
+    (300, 100, True, 0), (300, 100, True, 64), (1, 77, False, 0), (129, 129, True, 1),
+])
+def test_flash_kernel_ragged_and_rectangular(cuda, dtype, hd, sq, skv, causal, window):
+    q, k, v = _qkv((1, sq, 4, hd), (1, skv, 2, hd), dtype, sq + skv + hd, cuda)
+    _flash_close(q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_qwen_heads_and_strided_views(cuda, dtype):
+    # (40, 8) heads at hd 128, as Qwen2.5-32B; k and v are views into one
+    # (B, S, 2, K, hd) buffer, so their batch and sequence strides are not
+    # those of a contiguous tensor.
+    q, _, _ = _qkv((1, 700, 40, 128), (1, 1, 1, 1), dtype, 5, cuda)
+    kv = torch.from_numpy(np.random.default_rng(6).standard_normal((1, 700, 2, 8, 128)).astype(np.float32))
+    kv = kv.to(device=cuda, dtype=dtype)
+    _flash_close(q, kv[:, :, 0], kv[:, :, 1], causal=True, window=0)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = _qkv((1, 16, 2, 48), (1, 16, 2, 48), torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(q, k, v)
+    q, k, v = _qkv((1, 16, 2, 32), (1, 16, 2, 32), torch.float16, 0, cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention_cuda(q, k, v)
+
+
+def _rel_rms(got: torch.Tensor, exp: torch.Tensor) -> float:
+    return float((got - exp).square().mean().sqrt() / exp.square().mean().sqrt())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoder_prefill_on_card_launches_the_kernel_per_layer(cuda, dtype):
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("qwen2.5-32b").reduced(), attn_impl="chunked", n_layers=3, param_dtype=dtype)
+    m, m_cpu = build_model(cfg), build_model(cfg, device="cpu")
+    # the witness: the same weights on the card through attn_impl="dense"
+    # (cuBLAS products and a torch softmax, no kernel)
+    m_dense = build_model(dataclasses.replace(cfg, attn_impl="dense"))
+    assert m.device.type == "cuda"
+    params = m.init(0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 100)).astype(np.int32)
+    nxt = torch.from_numpy(toks[:, :1].copy())
+    before = flash_attention_cuda.launches
+    logits, caches = m.prefill(params, {"tokens": torch.from_numpy(toks).to(cuda)}, cache_len=120)
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    logits2, _ = m.decode_step(params, caches, nxt.to(cuda), 100)
+    wit, wit_caches = m_dense.prefill(params, {"tokens": torch.from_numpy(toks).to(cuda)}, cache_len=120)
+    wit2, _ = m_dense.decode_step(params, wit_caches, nxt.to(cuda), 100)
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    params_cpu = params.to("cpu")
+    ref, ref_caches = m_cpu.prefill(params_cpu, {"tokens": torch.from_numpy(toks)}, cache_len=120)
+    ref2, _ = m_cpu.decode_step(params_cpu, ref_caches, nxt, 100)
+    tol = _TOL[dtype]
+    for got, w, exp in ((logits, wit, ref), (caches[0][0]["k"], wit_caches[0][0]["k"], ref_caches[0][0]["k"]),
+                        (logits2, wit2, ref2)):
+        got, w, exp = got.cpu().float(), w.cpu().float(), exp.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, exp, rtol=tol, atol=tol)
+            torch.testing.assert_close(w, exp, rtol=tol, atol=tol)
+        else:
+            # bf16: the card and the CPU round three layers' activations at
+            # other places, and no two routes are elementwise within 3e-2
+            # here, the kernel-free ones included (the witness against the
+            # CPU, or the CPU's chunked against its dense). So the kernel
+            # route is held, in RMS over the tensor, within 3e-2 of the CPU
+            # and no further from it than 1.5x the witness is.
+            err, err_wit = _rel_rms(got, exp), _rel_rms(w, exp)
+            assert err <= tol and err <= 1.5 * err_wit, (err, err_wit)
+
+
+@pytest.mark.cuda
+def test_chunked_mha_on_card_takes_no_plain_route(cuda):
+    from repro_torch.models.layers import AttnSpec, init_attention, mha
+
+    spec = AttnSpec(d_model=64, n_heads=4, n_kv_heads=2, head_dim=32, impl="chunked")
+    p = init_attention(torch.Generator(device=cuda).manual_seed(0), spec, torch.float32, cuda)
+    x = torch.randn(1, 8, 64, device=cuda)
+    positions = torch.arange(8, device=cuda)[None]
+    with pytest.raises(ValueError, match="mask_offset"):
+        mha(p, spec, x, positions, mask_offset=4)
+    spec48 = dataclasses.replace(spec, head_dim=48)
+    p48 = init_attention(torch.Generator(device=cuda).manual_seed(0), spec48, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        mha(p48, spec48, x, positions)

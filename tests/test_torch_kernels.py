@@ -4,8 +4,12 @@ Same seeded numpy inputs through ``repro.kernels`` (the jnp oracles and the
 Pallas kernels in interpret mode) and ``repro_torch.kernels`` (the plain
 torch twins, which is what a CPU tensor runs). Every output is integers, so
 the tolerance is 0 everywhere. The CUDA kernels themselves are held
-against these twins on the card by ``tests/test_torch_cuda.py``.
+against these twins on the card by ``tests/test_torch_cuda.py``. The last
+tests check host-side helpers of ``chip_smoke.py`` and
+``tools/flash_planted_faults.py``.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -222,3 +226,49 @@ def test_sass_ops_per_word_reads_the_inner_loop():
     assert ops == (3 + 1) / 2
     with pytest.raises(AssertionError):
         chip_smoke.sass_ops_per_word(_SASS.replace("@P1 BRA 0x10", "@P1 BRA 0xd0"), "fp_accumulate")
+
+
+def test_flash_limit_scales_with_the_row():
+    """chip_smoke's flash limit is relative to each element and to its row's
+    RMS: an error of a tenth of a small row's scale fails it, where the
+    reference's fixed 3e-2 would pass it."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    exp = torch.full((2, 8), 0.02)
+    exp[1] = 0.0
+    got = exp.clone()
+    got[0, 0] += 0.002
+    ratio = chip_smoke.flash_err_ratio(got, exp)
+    assert float(ratio[0, 0]) == pytest.approx(0.002 / 0.04, rel=1e-4)
+    assert float(ratio[0, 0]) > chip_smoke.FLASH_RTOL["bfloat16"]
+    assert 0.002 <= 3e-2 + 3e-2 * 0.02
+    assert float(ratio[0, 1:].max()) == 0.0 and float(ratio[1].max()) == 0.0  # equal, rows of 0 included
+    got[1, 3] = 1e-6
+    got[0, 5] = float("nan")
+    ratio = chip_smoke.flash_err_ratio(got, exp)
+    assert math.isinf(float(ratio[1, 3]))
+    assert int((~(ratio <= chip_smoke.FLASH_RTOL["float32"])).sum()) == 3
+
+
+def test_planted_faults_edit_both_kernels_loops():
+    """tools/flash_planted_faults.py's mutants each add one skipped tile to
+    the KV loop of both the float32 and the bfloat16 kernel."""
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root / "tools"))
+    import flash_planted_faults as planted
+
+    src = (root / "src" / "repro_torch" / "csrc" / "flash_attn.cu").read_text()
+    for skip in planted.MUTANTS.values():
+        mutant = planted.mutant_source(src, skip)
+        line = f"if (q0 >= a.Sq / 2 && t == {skip}) continue;"
+        assert mutant.count(line) == 2
+        simt, mma = mutant.split("flash_fwd_mma(Args a)")
+        assert line in simt.split("flash_fwd_simt(Args a)")[1] and line in mma
+        assert mutant.replace(f"    {line}\n", "") == src
