@@ -35,7 +35,11 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    before the prefill and read after it (64 flash launches) and after the
    decode (0 more). Layer 0's attention at that shape is held against the
    plain version and timed beside it and beside PyTorch's
-   ``scaled_dot_product_attention`` (timed only);
+   ``scaled_dot_product_attention`` (timed only). The bf16 kernel,
+   ``flash_fwd_wgmma``, must be among the prefill profile's five largest
+   kernels, take at most twice SDPA's time, and spill no registers (its
+   registers from ``cuobjdump -res-usage``, its TFLOP/s and its nvcc
+   seconds, null when the library was already built, go into its row);
 7. the serving path at full width: ``BatchedServer`` on the same model over
    ``DedupCluster.create(4, chunking=ChunkingSpec("fixed", 64 KiB))`` with
    ``repro_torch.launch.serve``'s traffic (48 shared prefix tokens, 8 random
@@ -127,6 +131,22 @@ def sass_ops_per_word(sass: str, func: str) -> tuple[float, float]:
                 break
             dependent += op.split(".")[0] in _INT_ALU
     return len(loop) / len(loads), dependent / len(loads)
+
+
+def res_usage(text: str) -> dict[str, dict]:
+    """Registers, stack and local (spill) bytes per thread of each kernel in
+    ``cuobjdump -res-usage`` text, keyed ``name<hd>`` from the mangled name
+    (``flash_fwd_wgmma<128>``)."""
+    out = {}
+    for fn, reg, stack, local in re.findall(
+        r"Function ([^\s:]+):\s*REG:(\d+)\s+STACK:(\d+)\s+SHARED:\d+\s+LOCAL:(\d+)", text
+    ):
+        name = re.search(r"\d+([a-z_]+)I(?:f)?Li(\d+)E", fn)
+        if name:
+            out[f"{name.group(1)}<{name.group(2)}>"] = {
+                "registers": int(reg), "stack_bytes": int(stack), "local_bytes": int(local),
+            }
+    return out
 
 
 def decoder_layer_shapes(
@@ -525,6 +545,7 @@ def flash_grid_phase(check: FlashCheck, gen) -> None:
         for sq, skv, h, kh, hd, causal, window in (
             (700, 700, 40, 8, 128, True, 0), (64, 256, 4, 2, 32, False, 0), (300, 100, 4, 2, 64, True, 64),
             (1000, 1000, 8, 2, 64, True, 0), (4097, 4097, 8, 2, 128, True, 0), (4097, 1000, 8, 2, 128, True, 64),
+            (257, 257, 40, 8, 128, True, 129), (384, 255, 4, 2, 32, False, 0), (640, 640, 8, 2, 64, True, 100),
         ):
             check(*qkv(sq, skv, h, kh, hd, dtype), causal=causal, window=window,
                   what=f"flash {dtype} Sq={sq} Skv={skv} H={h} K={kh} hd={hd} causal={causal} window={window}")
@@ -584,7 +605,7 @@ def prefill_phase(model, params, check: FlashCheck, gen) -> tuple[dict, dict]:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels.flash_attn import flash_attention_cuda, flash_attention_plain
 
     cfg = model.cfg
@@ -642,6 +663,16 @@ def prefill_phase(model, params, check: FlashCheck, gen) -> tuple[dict, dict]:
     library_ms = _timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 5)
     ops_ms, bytes_ms = flash_bound_ms(q, k, True, 0)
     del q, k, v, qt, kt, vt
+    _check(any("flash_fwd_wgmma" in name for name, _, _ in prefill_profile["top"]),
+           f"flash_fwd_wgmma is not among the prefill's top kernels: {prefill_profile['top']}")
+    _check(ms <= 2 * library_ms, f"flash kernel {ms:.3f} ms > 2 x scaled_dot_product_attention {library_ms:.3f} ms")
+    usage = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-res-usage", str(_build._lib_path("flash_attn"))],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    regs = {k: r for k, r in res_usage(usage).items() if "wgmma" in k}
+    _check(len(regs) == 3 and all(r["stack_bytes"] == r["local_bytes"] == 0 for r in regs.values()),
+           f"flash_fwd_wgmma's resource usage (3 head dims, no stack or local memory): {regs}")
 
     weight_bytes = sum(p.numel() * p.element_size() for n, p in params.named_parameters() if not n.startswith("embed"))
     kv_bytes = 2 * cfg.n_layers * PREFILL_CACHE * cfg.n_kv_heads * cfg.resolved_head_dim * 2
@@ -667,6 +698,8 @@ def prefill_phase(model, params, check: FlashCheck, gen) -> tuple[dict, dict]:
         "rtol": FLASH_RTOL, "cases": check.cases,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": library_ms,
+        "tflops": ops_ms / ms * BF16_FLOP_PER_S * 1e-12, "resources": regs,
+        "build_s": _build.build_seconds.get("flash_attn"),
         "shape": f"q (1, {PREFILL_TOKENS}, {cfg.n_heads}, {cfg.resolved_head_dim}) bf16, k/v "
                  f"(1, {PREFILL_TOKENS}, {cfg.n_kv_heads}, {cfg.resolved_head_dim}), causal",
     }

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -48,8 +49,10 @@ SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, shared memory, spills) of each library built here.
+# ptxas report (registers, shared memory, spills) of each library built here,
+# and the seconds from the start of its nvcc until its result was read.
 ptxas_reports: dict[str, str] = {}
+build_seconds: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -65,25 +68,27 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{tag}.so"
 
 
-def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
+def _start(name: str) -> tuple[Path, Path, subprocess.Popen, float] | None:
     out = _lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
-    return out, tmp, proc
+    return out, tmp, proc, t0
 
 
-def _finish(name: str, job: tuple[Path, Path, subprocess.Popen]) -> None:
-    out, tmp, proc = job
+def _finish(name: str, job: tuple[Path, Path, subprocess.Popen, float]) -> None:
+    out, tmp, proc, t0 = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     ptxas_reports[name] = log
+    build_seconds[name] = time.perf_counter() - t0
     os.replace(tmp, out)
 
 

@@ -21,6 +21,20 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+_BM_BF16 = 128  # query rows per block of the bf16 kernel
+
+
+def _check_tma(**tensors: torch.Tensor) -> None:
+    """Raise unless each tensor starts on a 16-byte boundary and every
+    stride but the last (1) of a dim longer than 1 is a positive multiple
+    of 16 bytes (TMA's rule)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for TMA; its address is {t.data_ptr():#x}")
+        dims = zip(t.shape[:-1], t.stride()[:-1])
+        bad = [st for n, st in dims if n > 1 and (st <= 0 or st * t.element_size() % 16)]
+        if bad:
+            raise ValueError(f"{name}'s strides {t.stride()} must be positive multiples of 16 bytes for TMA")
 
 
 def flash_attention_plain(
@@ -52,6 +66,9 @@ def flash_attention_cuda(
     ``flash_attention_plain``. The kernel takes float32 or bfloat16 (all
     three of one dtype), head dims 32, 64 and 128, H a multiple of K, any
     Sq, Skv >= 1, and any strides whose last one is 1 (no copy is made).
+    bfloat16 is loaded by TMA, which needs q, k and v to start on a 16-byte
+    boundary and every stride of a dim longer than 1 to be a multiple of 16
+    bytes; anything else raises ``ValueError``.
     """
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
@@ -73,6 +90,10 @@ def flash_attention_cuda(
         raise ValueError("q, k, v must be on one device")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dim must be contiguous (stride 1)")
+    if q.dtype == torch.bfloat16:
+        _check_tma(q=q, k=k, v=v)
+        if sq + skv >= 2**31 or -(-sq // _BM_BF16) > _MAX_GRID_Y:
+            raise ValueError(f"need Sq + Skv < 2**31 and Sq <= {_MAX_GRID_Y * _BM_BF16}; got {sq}, {skv}")
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)

@@ -205,6 +205,29 @@ def test_flash_kernel_qwen_heads_and_strided_views(cuda, dtype):
     _flash_close(q, kv[:, :, 0], kv[:, :, 1], causal=True, window=0)
 
 
+# bf16 tiling: the kernel's blocks hold 128 query rows (two consumers of 64)
+# and its K/V ring tiles 128 rows. Lengths on either side of a tile, windows
+# that cut through one, Sq > Skv, and whole-tile windows.
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (127, 127, True, 0), (128, 128, True, 0), (129, 129, True, 0), (255, 255, True, 0), (257, 257, True, 0),
+    (129, 129, False, 0), (257, 257, False, 0), (300, 300, True, 100), (400, 400, True, 129),
+    (257, 129, True, 0), (384, 255, False, 0), (300, 127, True, 100), (640, 640, True, 128),
+])
+def test_flash_kernel_bf16_tiles(cuda, hd, sq, skv, causal, window):
+    q, k, v = _qkv((1, sq, 4, hd), (1, skv, 2, hd), torch.bfloat16, 3 * sq + skv + hd, cuda)
+    _flash_close(q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("window", [0, 129])
+def test_flash_kernel_bf16_batch2_qwen_heads(cuda, hd, window):
+    q, k, v = _qkv((2, 257, 40, hd), (2, 257, 8, hd), torch.bfloat16, hd + window, cuda)
+    _flash_close(q, k, v, causal=True, window=window)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v = _qkv((1, 16, 2, 48), (1, 16, 2, 48), torch.float32, 0, cuda)
@@ -213,6 +236,16 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v = _qkv((1, 16, 2, 32), (1, 16, 2, 32), torch.float16, 0, cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         flash_attention_cuda(q, k, v)
+    # bf16 goes through TMA: a K view 8 bytes into its buffer, and one whose
+    # sequence stride (72 bytes) is no multiple of 16, both raise.
+    q, _, _ = _qkv((1, 16, 2, 32), (1, 1, 1, 1), torch.bfloat16, 0, cuda)
+    buf = torch.zeros((1, 16, 2, 40), dtype=torch.bfloat16, device=cuda)
+    k = buf[..., 4:36]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention_cuda(q, k, k.clone())
+    k = torch.zeros((1, 16, 2, 36), dtype=torch.bfloat16, device=cuda)[..., :32]
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash_attention_cuda(q, k, k.contiguous())
 
 
 def _rel_rms(got: torch.Tensor, exp: torch.Tensor) -> float:

@@ -256,7 +256,8 @@ def test_flash_limit_scales_with_the_row():
 
 def test_planted_faults_edit_both_kernels_loops():
     """tools/flash_planted_faults.py's mutants each add one skipped tile to
-    the KV loop of both the float32 and the bfloat16 kernel."""
+    the float32 kernel's KV loop and to the KV tile walk that the bfloat16
+    kernel's producer and consumers share."""
     import sys
     from pathlib import Path
 
@@ -269,6 +270,29 @@ def test_planted_faults_edit_both_kernels_loops():
         mutant = planted.mutant_source(src, skip)
         line = f"if (q0 >= a.Sq / 2 && t == {skip}) continue;"
         assert mutant.count(line) == 2
-        simt, mma = mutant.split("flash_fwd_mma(Args a)")
-        assert line in simt.split("flash_fwd_simt(Args a)")[1] and line in mma
+        simt = mutant.split("flash_fwd_simt(Args a)")[1].split("\n}\n")[0]
+        walk = mutant.split("walk_kv_tiles(const Args& a, int q0, Visit&& visit)")[1].split("\n}\n")[0]
+        assert line in simt and line in walk
         assert mutant.replace(f"    {line}\n", "") == src
+
+
+def test_res_usage_reads_cuobjdump_text():
+    """chip_smoke.res_usage keys each kernel of ``cuobjdump -res-usage`` by
+    its name and head dim, with registers, stack and local bytes."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    text = (
+        "Resource usage:\n Common:\n  GLOBAL:0\n"
+        " Function _ZN46_GLOBAL__N__0_13_flash_attn_cu_015flash_fwd_wgmmaILi64EEEv14CUtensorMap_stS1_S1_NS_4ArgsE:\n"
+        "  REG:168 STACK:0 SHARED:48 LOCAL:0 CONSTANT[0]:936 TEXTURE:0 SURFACE:0 SAMPLER:0\n"
+        " Function _ZN46_GLOBAL__N__0_13_flash_attn_cu_014flash_fwd_simtIfLi32EEEvNS_4ArgsE:\n"
+        "  REG:128 STACK:8 SHARED:0 LOCAL:4 CONSTANT[0]:512 TEXTURE:0 SURFACE:0 SAMPLER:0\n"
+    )
+    assert chip_smoke.res_usage(text) == {
+        "flash_fwd_wgmma<64>": {"registers": 168, "stack_bytes": 0, "local_bytes": 0},
+        "flash_fwd_simt<32>": {"registers": 128, "stack_bytes": 8, "local_bytes": 4},
+    }

@@ -8,8 +8,11 @@ value rows and its elements are small.
 Run from the root of the repository on a machine with a CUDA card and nvcc.
 It builds ``src/repro_torch/csrc/flash_attn.cu`` as it stands and three
 mutants of it, each made in a temporary directory by one text edit that
-acts on the second half of the query tiles only (both the float32 and the
-bfloat16 kernel):
+acts on the second half of the query tiles only, in the float32 kernel's
+KV loop and in the KV tile walk (``walk_kv_tiles``) that the bfloat16
+kernel's TMA producer and its two consumer warpgroups share, so the
+three stay in step on the ring and a mutant drops the tile instead of
+deadlocking:
 
 - ``drop_last_tile``: skip the last visible KV tile (the diagonal one when
   causal);
@@ -41,7 +44,12 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-LOOP = "  for (int64_t t = t_lo; t < t_hi; ++t) {\n    const int64_t kv0 = t * kBN;\n"
+# The KV loops a mutant edits: flash_fwd_simt's, and walk_kv_tiles's (the
+# bf16 kernel's producer and consumers both walk their tiles through it).
+LOOPS = (
+    "  for (int64_t t = t_lo; t < t_hi; ++t) {\n    const int64_t kv0 = t * kBN;\n",
+    "  for (int t = t_lo; t < t_hi; ++t) {\n",
+)
 # The reference's fixed bf16 tolerance (|err| <= 3e-2 + 3e-2 * |plain|), counted
 # beside FLASH_RTOL on the layer-0 check for comparison.
 FIXED_TOL = 3e-2
@@ -53,10 +61,12 @@ MUTANTS = {
 
 
 def mutant_source(src: str, skip: str) -> str:
-    """``src`` with tile ``skip`` left out of both kernels' KV loops for the
+    """``src`` with tile ``skip`` left out of both kernels' KV walks for the
     query tiles in the second half of the rows."""
-    assert src.count(LOOP) == 2, "the KV loop of flash_attn.cu changed: update LOOP"
-    return src.replace(LOOP, LOOP + f"    if (q0 >= a.Sq / 2 && t == {skip}) continue;\n")
+    for loop in LOOPS:
+        assert src.count(loop) == 1, "a KV loop of flash_attn.cu changed: update LOOPS"
+        src = src.replace(loop, loop + f"    if (q0 >= a.Sq / 2 && t == {skip}) continue;\n")
+    return src
 
 
 def load_library(path: Path) -> ctypes.CDLL:
