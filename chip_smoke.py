@@ -14,7 +14,7 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
 2. hold each dedup kernel against its plain torch twin on the card, at exact
    equality, on its own test shapes; the seed-15 bench wave must give the
    pinned n_chunks / boundary_checksum (24/956437 at 0.25 MiB, 201/71402112
-   at 2 MiB);
+   at 2 MiB), and its cut positions and masks must equal the twin's;
 3. the checkpoint path at full size: one decoder layer of Qwen2.5-32B at
    full width in bf16 (~975 MB, random from ``--seed``) saved, re-saved,
    perturbed and saved again, then restored, through ``DedupCheckpointer``
@@ -23,7 +23,10 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    the host numpy chunker. Every kernel count is set to 0 just before this
    phase and read just after;
 4. time each dedup kernel and its plain twin at that path's shapes and
-   compare the whole fingerprint block with the twin;
+   compare the cut positions and the whole fingerprint block with the
+   twin; split the cut kernel's time into its two phases (``torch.profiler``);
+   hold the cut kernel against the twin on ``bitmap_route_wave`` too, so
+   both of its routes run (the main path takes only the list route);
 5. hold the flash-attention kernel against its plain version on the card:
    the (causal, window) x (H, K) grid, (40, 8) heads at hd 128, float32 and
    bfloat16, Sq != Skv and ragged lengths, counting the elements beyond
@@ -78,8 +81,8 @@ QWEN2_5_32B = dict(d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128, d_ff=27
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # Integer operations the CDC kernels need per byte (see the csrc notes): cut
-# mask: gear lookup, shift-add, mask, compare; window hashes: gear lookup,
-# shift-add. Both kernels are bound by bytes, far from these. The
+# positions: gear lookup, shift-add, mask, compare; window hashes: gear
+# lookup, shift-add. Both kernels are bound by bytes, far from these. The
 # fingerprint's count per word is read from the built kernel's SASS
 # (``sass_ops_per_word``); counted from the source it is 44: 4 lanes x
 # (2 multiply-adds + 8 fmix32 steps + 1 accumulate).
@@ -203,6 +206,32 @@ def seed15_wave(buf_bytes: int):
     return [rng.integers(0, 256, size=s, dtype=np.uint8) for s in sizes]
 
 
+def bitmap_route_wave(seed: int, device):
+    """A 64 MiB wave of random bytes, cut at a 2 KiB target (1 KiB..8 KiB),
+    whose 44 MiB stream holds ~22,500 candidates, more than the cut kernel's
+    candidate list (8,192), so it takes the bitmap route; its 12 and 8 MiB
+    streams (~6,100 and ~4,100) take the list route. Returns (streams on
+    ``device``, the kernel's mask / min_size / max_size)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.chunking import cdc_mask
+
+    rng = np.random.default_rng(seed + 1)
+    streams = [torch.from_numpy(rng.integers(0, 256, size=n << 20, dtype=np.uint8)).to(device)
+               for n in (44, 12, 8)]
+    return streams, dict(mask=cdc_mask(2048), min_size=1024, max_size=8 * 1024)
+
+
+def cut_bound_ms(wave_bytes: int, m_cut: int, n_streams: int) -> tuple[float, float]:
+    """(bytes, operations) lower bounds in ms of one cut-positions call:
+    each stream byte read once and the (m_cut,) int32 positions and (S, 3)
+    int32 counts written once, over the HBM rate; ``CUT_OPS_PER_BYTE``
+    integer operations per byte over the integer peak."""
+    nbytes = wave_bytes + 4 * m_cut + 12 * n_streams
+    return nbytes / HBM_BYTES_PER_S * 1e3, CUT_OPS_PER_BYTE * wave_bytes / INT32_OPS_PER_S * 1e3
+
+
 def _timed(fn, reps: int) -> float:
     """Milliseconds per call of ``fn`` on the card (CUDA events, warm)."""
     import torch
@@ -234,11 +263,21 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
     from repro_torch.core import ChunkingSpec, DedupCluster
     from repro_torch.core.chunking import _cdc_candidates, _cdc_cuts, cdc_mask, chunk_cdc
     from repro_torch.kernels import ops
-    from repro_torch.kernels.cdc import cdc_cut_masks_cuda, cdc_cut_masks_plain, cdc_hashes_cuda, cdc_hashes_plain
+    from repro_torch.kernels.cdc import (
+        cdc_cut_masks_cuda,
+        cdc_cut_masks_plain,
+        cdc_cut_positions_cuda,
+        cdc_cut_positions_plain,
+        cdc_hashes_cuda,
+        cdc_hashes_plain,
+    )
     from repro_torch.kernels.fingerprint import fingerprint_chunks_cuda, fingerprint_chunks_plain
 
     dev = torch.device("cuda")
-    kernels = (fingerprint_chunks_cuda, cdc_cut_masks_cuda, cdc_hashes_cuda)
+    kernels = (fingerprint_chunks_cuda, cdc_cut_positions_cuda, cdc_hashes_cuda)
+    routes = cdc_cut_positions_cuda.routes
+    for route in routes:
+        routes[route] = 0
 
     # Per kernel, over every comparison with its twin in phases 2 and 4: the
     # max |kernel - twin| and the count of elements that differ.
@@ -259,6 +298,21 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
         mismatches[kind] += n_diff
         _check(n_diff == 0, f"{what}: {n_diff} elements differ from the twin")
 
+    def compare_cuts(streams: list, kw: dict, what: str) -> tuple[list, float]:
+        """Hold the cut kernel's positions and counts against the twin's.
+        Returns the kernel's result and the twin's ms (host clock)."""
+        got = cdc_cut_positions_cuda(streams, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        exp = cdc_cut_positions_plain(streams, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        for i, ((g, gn, gk), (e, en, ek)) in enumerate(zip(got, exp)):
+            mismatches["cdc_cut"] += int(gn != en) + int(gk != ek)
+            _check((gn, gk) == (en, ek), f"{what}, stream {i}: n_cuts, n_chunks {(gn, gk)} != {(en, ek)}")
+            compare("cdc_cut", g, e, f"{what}, stream {i}")
+        return got, plain_ms
+
     # ----------------------------------------- 2. kernels vs twins, exact
     gen = np.random.default_rng(seed)
     for shape in [(1, 128), (2, 129), (5, 511), (8, 512), (13, 1000), (256, 512), (300, 700),
@@ -274,6 +328,7 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
         streams = [torch.from_numpy(s).to(dev) for s in seed15_wave(buf)]
         for g, p in zip(cdc_cut_masks_cuda(streams, **wave_kw), cdc_cut_masks_plain(streams, **wave_kw)):
             compare("cdc_cut", g, p, f"cut-mask kernel on the seed-15 wave at {buf} B")
+        compare_cuts(streams, wave_kw, f"cut-positions kernel on the seed-15 wave at {buf} B")
         res = ops.cdc_cut_and_fingerprint_many(streams, **wave_kw)
         n_chunks = sum(r[3] for r in res)
         checksum = sum(int(r[0][: r[1]].to(torch.int64).sum()) for r in res) % (1 << 32)
@@ -297,6 +352,7 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
         k.launches = 0
     for kind in ops.launch_counts:
         ops.launch_counts[kind] = 0
+    routes_before = dict(routes)
 
     def save(name: str) -> tuple[dict, float, dict, dict]:
         ops_before = ops.launch_snapshot()
@@ -317,7 +373,7 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
     m2, t_s2, ops_d2, k_d2 = save("s2")
     _check(all(e["ref"] for e in m2["leaves"]), "s2 of the same tree must be ref-only")
     _check(ops_d2 == {"cdc": 1, "fingerprint": 1, "flash": 0}, f"s2 launches {ops_d2}")
-    _check(k_d2["cdc_cut_masks_cuda"] == 1 and k_d2["fingerprint_chunks_cuda"] == 1, f"s2 kernels {k_d2}")
+    _check(k_d2["cdc_cut_positions_cuda"] == 1 and k_d2["fingerprint_chunks_cuda"] == 1, f"s2 kernels {k_d2}")
     ffn = tree["blocks"][0]["ffn"]
     for leaf in (ffn["gate"]["w"], ffn["up"]["w"], ffn["down"]["w"]):
         flat = leaf.view(-1)
@@ -352,6 +408,7 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
            f"{big_key}: device cuts != chunk_cdc(backend='kernel')")
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
+    routes_main = {r: n - routes_before[r] for r, n in routes.items()}
     for name, n in launches.items():
         _check(n > 0, f"{name} was never launched on the main path")
     print(f"largest leaf {big_key}: {len(data)} B, {int(n_cuts)} cuts equal on device, kernel route and host")
@@ -387,16 +444,19 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
     fp_bound_ops = fp_ops_per_word * c_rows * width / INT32_OPS_PER_S * 1e3
     del rows, fps
 
-    cut_ms = _timed(lambda: cdc_cut_masks_cuda(streams, **kw), 5)
-    t = time.perf_counter()
-    plain = cdc_cut_masks_plain(streams, **kw)
-    torch.cuda.synchronize()
-    cut_plain_ms = (time.perf_counter() - t) * 1e3
-    for g, p in zip(cdc_cut_masks_cuda(streams, **kw), plain):
-        compare("cdc_cut", g, p, "cut-mask kernel on the main-path wave")
-    del plain
-    cut_bound_bytes = 2 * wave_bytes / HBM_BYTES_PER_S * 1e3
-    cut_bound_ops = CUT_OPS_PER_BYTE * wave_bytes / INT32_OPS_PER_S * 1e3
+    cut_ms = _timed(lambda: cdc_cut_positions_cuda(streams, **kw), 5)
+    cuts, cut_plain_ms = compare_cuts(streams, kw, "cut-positions kernel on the main-path wave")
+    m_cut = sum(int(p.numel()) for p, _, _ in cuts)
+    cut_profile = profile_calls(lambda: cdc_cut_positions_cuda(streams, **kw), 5)
+    cut_phase_ms = {"A": device_ms_of(cut_profile, "cdc_phase_a"), "B": device_ms_of(cut_profile, "cdc_phase_b")}
+    cut_bound_bytes, cut_bound_ops = cut_bound_ms(wave_bytes, m_cut, len(streams))
+    # PR 11's bound charged a bool mask as large as the wave as the output.
+    cut_bound_prev = max(2 * wave_bytes / HBM_BYTES_PER_S * 1e3, cut_bound_ops)
+    bitmap_streams, bitmap_kw = bitmap_route_wave(seed, dev)
+    compare_cuts(bitmap_streams, bitmap_kw, "cut-positions kernel on the bitmap-route wave")
+    bitmap_ms = _timed(lambda: cdc_cut_positions_cuda(bitmap_streams, **bitmap_kw), 5)
+    del bitmap_streams
+    _check(all(n > 0 for n in routes.values()), f"the cut kernel's routes over the run: {routes}")
 
     hash_ms = _timed(lambda: cdc_hashes_cuda(stream), 5)
     t = time.perf_counter()
@@ -424,16 +484,20 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
         "leaves_ref_only": ckpt.stats["leaves_ref_only"],
         "launches_per_save": {"s2": ops_d2, "s3": ops_d3},
         "kernel_launches": launches,
+        "cut_routes": routes_main,
     }
     print("main_path " + json.dumps(main))
     rows_out = [
         {
-            "name": "cdc_cut_masks_cuda", "route": "cuda", "source": "src/repro_torch/csrc/cdc.cu",
-            "replaces": "src/repro/kernels/cdc.py:112", "launches": launches["cdc_cut_masks_cuda"],
+            "name": "cdc_cut_positions_cuda", "route": "cuda", "source": "src/repro_torch/csrc/cdc.cu",
+            "replaces": "src/repro/kernels/cdc.py:112", "launches": launches["cdc_cut_positions_cuda"],
             "mismatches": mismatches["cdc_cut"], "max_abs_err": err["cdc_cut"], "ms": cut_ms, "plain_ms": cut_plain_ms,
             "bound_ms": max(cut_bound_bytes, cut_bound_ops),
             "bound_by": "bytes" if cut_bound_bytes >= cut_bound_ops else "operations",
-            "library_ms": None, "shape": f"{len(streams)} streams, {wave_bytes} B",
+            "bound_prev_ms": cut_bound_prev, "library_ms": None,
+            "phase_ms": cut_phase_ms, "device_ms": cut_profile["device_ms_per_call"],
+            "routes": dict(routes), "bitmap_route_wave_ms": bitmap_ms,
+            "shape": f"{len(streams)} streams, {wave_bytes} B, {m_cut} cut slots",
         },
         {
             "name": "fingerprint_chunks_cuda", "route": "cuda",
@@ -552,32 +616,55 @@ def flash_grid_phase(check: FlashCheck, gen) -> None:
     torch.cuda.synchronize()
 
 
-def device_profile(fn) -> dict:
-    """Run ``fn`` once under ``torch.profiler``: its wall ms (profiler on),
-    the summed device time of the CUDA kernels it ran, the idle share of
-    the device over the wall time, and the five kernels with the most
-    device time. ``device_ms`` is None when the trace holds no device time."""
+def profile_calls(fn, reps: int) -> dict:
+    """Run ``fn`` ``reps`` times under ``torch.profiler``. Per call: wall
+    ms, device ms of all device work, their difference (the host gap),
+    device ms and launches by name, and the host operations with the most
+    self time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = []
+        wall_ms = (time.perf_counter() - t) * 1e3 / reps
+    by_name, host = {}, []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        us = getattr(e, "self_cuda_time_total", 0) if us is None else us
-        kernels.append((us / 1e3, e.count, e.key[:90]))
-    device_ms = sum(k[0] for k in kernels) if kernels else None
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+            by_name[e.key[:100]] = [us / 1e3 / reps, e.count / reps]
+        else:
+            host.append((e.self_cpu_time_total / 1e3 / reps, e.key[:60], e.count / reps))
+    device_ms = sum(ms for ms, _ in by_name.values())
+    return {"wall_ms_per_call": wall_ms, "device_ms_per_call": device_ms,
+            "host_gap_ms_per_call": wall_ms - device_ms, "by_name": by_name,
+            "host_ops": [[name, ms, n] for ms, name, n in sorted(host, reverse=True)[:8]]}
+
+
+def device_ms_of(prof: dict, pattern: str) -> float:
+    """Device ms per call of the work in a ``profile_calls`` result whose
+    name holds ``pattern``."""
+    return sum(ms for name, (ms, _) in prof["by_name"].items() if pattern in name)
+
+
+def device_profile(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: its wall ms (profiler on),
+    the summed device time of the CUDA work it ran, the idle share of the
+    device over the wall time, and the five kernels with the most device
+    time. ``device_ms`` is None when the trace holds no device time."""
+    prof = profile_calls(fn, 1)
+    wall_ms = prof["wall_ms_per_call"]
+    device_ms = prof["device_ms_per_call"] if prof["by_name"] else None
+    top = sorted(prof["by_name"].items(), key=lambda kv: kv[1][0], reverse=True)[:5]
     return {
-        "wall_ms": wall_ms, "device_ms": device_ms, "kernels": sum(k[1] for k in kernels),
+        "wall_ms": wall_ms, "device_ms": device_ms,
+        "kernels": round(sum(n for _, n in prof["by_name"].values())),
         "idle_share": None if device_ms is None else 1 - device_ms / wall_ms,
-        "top": [[name, ms, n] for ms, n, name in sorted(kernels, reverse=True)[:5]],
+        "top": [[name[:90], ms, round(n)] for name, (ms, n) in top],
     }
 
 

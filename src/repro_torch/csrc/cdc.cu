@@ -1,12 +1,12 @@
 // Windowed gear-hash content-defined chunking for Hopper (sm_90a): window
 // hashes, and the fused hash + min/max-size cut selection over a wave of
-// byte streams.
+// byte streams, which writes each stream's cut positions.
 //
 // Replaces:
 //   * src/repro/kernels/cdc.py::_cdc_cut_kernel (cdc_cut_masks_pallas) with
-//     phase A (bitmap mode) + phase B below;
+//     cdc_phase_a + cdc_phase_b below (cdc_cut_positions_launch);
 //   * src/repro/kernels/cdc.py::_cdc_kernel (cdc_hashes_pallas,
-//     cdc_boundaries_pallas) with phase A in hash mode (the same template).
+//     cdc_boundaries_pallas) with cdc_hashes (cdc_window_hashes_launch).
 //
 // Semantics, per stream of n bytes b_0..b_{n-1} (T = the 256-entry gear table):
 //   h_i   = sum_{k=0}^{31} T[b_{i-k}] << k  (mod 2^32; b_j for j < 0 adds 0)
@@ -15,31 +15,44 @@
 //                        hard = max(lo, sp + max - 1);
 //                        cut = first cand >= lo if it is <= hard, else hard;
 //                        stop if cut >= n; emit cut; sp = cut + 1 }
+// The TPU kernel wrote a bool mask with a bit per cut; the caller only needs
+// the cut positions, so this kernel writes those: per stream, m_cut int32
+// slots (the first n_cuts hold the cuts in order, the rest n) and one row
+// (n_cuts, n_chunks, route).
 //
-// What bounds it on this card: bytes. Phase A reads each stream byte once
-// and does ~4 integer operations per byte (gear lookup, shift-add, mask,
-// compare), well under the ~10 operations per byte at which an H100's
-// integer issue rate meets its 3.35 TB/s; the function's output (one bool
-// per byte) is as large as its input. Phase B is a serial walk per stream
-// whose cost is the latency of a few dependent loads per cut, not bandwidth.
+// What bounds it on this card: bytes. The cuts read each stream byte once
+// and write a few KB; their ~4 integer operations per byte (gear lookup,
+// shift-add, mask, compare) are under the ~10 per byte at which an H100's
+// integer issue rate meets its 3.35 TB/s. The cut selection itself is a
+// serial walk per stream, bound by the latency of its steps.
 //
 // What the design does about it:
-//   * Phase A runs over every tile of every stream at once (a GPU grid has no
-//     order, so nothing is carried between blocks). It reads the bytes
-//     themselves, 16 bytes per load, and keeps the gear table in shared
-//     memory, where the TPU path first materialized 4-byte gear values.
-//     Each thread owns 32 consecutive positions and rolls the hash over the
-//     31 bytes before them (from the previous tile of the same stream, zeros
-//     at the stream head): h_q = (h_{q-1} << 1) + T[b_q] equals the 32-term
-//     window sum because a term leaves the 32-bit word after 32 shifts. So
-//     the 32 shifted adds cost one shift-add per byte. The thread writes one
-//     32-bit candidate word (level 0); a __ballot_sync of "word != 0" gives a
-//     level-1 word with one bit per level-0 word.
-//   * Phase B gives each stream one warp and carries "last cut + 1" in a
-//     register. The warp finds the next candidate >= lo from the level-0
-//     word at lo, then 128 level-1 words (131,072 positions) per step, so a
-//     cut costs a handful of dependent loads instead of a scan of the bytes.
-//     It sees the whole stream, so no drained-tile argument is needed.
+//   * cdc_phase_a runs over every tile of every stream at once (a GPU grid
+//     has no order, so nothing is carried between blocks). It reads the
+//     bytes themselves, 16 bytes per load, and keeps the gear table in
+//     shared memory, one copy per lane so that a warp's 32 random lookups
+//     take one pass (a single copy queued them ~3.5 deep on its banks). The
+//     hash is linear: h_q = (h_{q-1} << 1) + T[b_q] equals the 32-term
+//     window sum because a term leaves the 32-bit word after 32 shifts, and
+//     h_{p0+j} = (h_{p0-1} << (j + 1)) + (the hash of b_p0..b_{p0+j} alone).
+//     So each thread hashes its own 32 positions from 0 and takes h_{p0-1}
+//     from the lane before it (a shuffle): one lookup per byte and no
+//     warm-up over the bytes before. It writes one 32-bit candidate word
+//     (level 0); a __ballot_sync of "word != 0" gives a level-1 word with
+//     one bit per level-0 word. A warp with a candidate also appends the
+//     positions to its stream's list (one atomicAdd per warp on the
+//     stream's count, a prefix over the lanes' popcounts for the slots); the
+//     count goes on past the list's kListCap slots, and no store lands past
+//     them.
+//   * cdc_phase_b gives each stream one block. Where the stream's candidates
+//     fit the list (the checkpoint's case: ~1 per 512 KiB), the block sorts
+//     the list in shared memory (bitonic; the append order is arbitrary) and
+//     one thread walks it once, the chunk start in a register: a few
+//     register operations per candidate or cut, no search. Otherwise (dense
+//     candidates) warp 0 walks the bitmap: the level-0 word at lo, then 128
+//     level-1 words (131,072 positions) per step, a handful of dependent
+//     loads per cut. Both are exact; the block then fills the positions'
+//     tail with n.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -48,13 +61,19 @@ namespace {
 
 constexpr int kThreads = 256;           // phase-A threads per block; x 32 positions each
 constexpr int kTileL1 = kThreads / 32;  // level-1 words per tile
+constexpr int kListCap = 8192;          // candidate slots per stream (32 KiB)
+constexpr int kWalkThreads = 512;       // phase-B threads per block (one block per stream)
 constexpr unsigned kFull = 0xffffffffu;
+// Routes of phase B, the third int of a stream's counts row.
+constexpr int kRouteList = 0;
+constexpr int kRouteBitmap = 1;
 
 struct Wave {
   const uint64_t* ptrs;     // (S,) stream base addresses, 16-byte aligned
-  const int64_t* lens;      // (S,) byte lengths, all >= 1
+  const int64_t* lens;      // (S,) byte lengths, all >= 1 (< 2^31 for cuts)
   const int64_t* tile_off;  // (S+1,) prefix sums of ceil(len / (kThreads * 32))
   const int64_t* pos_off;   // (S+1,) prefix sums of len
+  const int64_t* cut_off;   // (S+1,) prefix sums of m_cut = len / (min + 1) + 1
   int n_streams;
 };
 
@@ -69,15 +88,10 @@ __device__ __forceinline__ int stream_of_tile(const int64_t* tile_off, int n_str
   return lo;
 }
 
-// Phase A. kHashes: write the u32 window hash of every position to `hashes`
-// (at pos_off[s] + position). Otherwise write the candidate bitmap: level 0
-// (`l0`, one bit per position, tile_off[s] * kThreads words per stream start)
-// and level 1 (`l1`, one bit per level-0 word).
-template <bool kHashes>
+// The window-hash kernel: the u32 window hash of every position of every
+// stream, to hashes[pos_off[s] + position]. One tile per block.
 __global__ void __launch_bounds__(kThreads)
-cdc_phase_a(Wave wave, const uint32_t* __restrict__ gear, uint32_t mask,
-            uint32_t* __restrict__ l0, uint32_t* __restrict__ l1,
-            uint32_t* __restrict__ hashes) {
+cdc_hashes(Wave wave, const uint32_t* __restrict__ gear, uint32_t* __restrict__ hashes) {
   __shared__ uint32_t table[256];
   table[threadIdx.x] = gear[threadIdx.x];
   __syncthreads();
@@ -122,25 +136,138 @@ cdc_phase_a(Wave wave, const uint32_t* __restrict__ gear, uint32_t mask,
     const uint32_t byte = (buf[i >> 2] >> (8 * (i & 3))) & 0xffu;
     if (p0 - 32 + i >= 0) h = (h << 1) + table[byte];
   }
-  uint32_t word = 0;
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     const int i = 32 + j;
     const uint32_t byte = (buf[i >> 2] >> (8 * (i & 3))) & 0xffu;
     h = (h << 1) + table[byte];
-    if (p0 + j < n) {
-      if constexpr (kHashes) {
-        hashes[wave.pos_off[s] + p0 + j] = h;
-      } else {
-        word |= static_cast<uint32_t>((h & mask) == 0u) << j;
+    if (p0 + j < n) hashes[wave.pos_off[s] + p0 + j] = h;
+  }
+}
+
+// Phase A of the cuts: the candidate bitmap, level 0 (`l0`, one bit per
+// position, tile_off[s] * kThreads words per stream start) and level 1
+// (`l1`, one bit per level-0 word); each stream's candidate count in
+// `count[s]` (zero on entry) and its first kListCap candidates, in no order,
+// at list[s * kListCap + slot]. A block takes tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... below n_tiles. Streams are < 2^31 bytes.
+__global__ void __launch_bounds__(kThreads)
+cdc_phase_a(Wave wave, int64_t n_tiles, const uint32_t* __restrict__ gear, uint32_t mask,
+            uint32_t* __restrict__ l0, uint32_t* __restrict__ l1,
+            unsigned* __restrict__ count, int* __restrict__ list) {
+  // One copy of the gear table per lane: entry v of lane l at byte offset
+  // v * 128 + l * 4, in bank l, so a warp's 32 lookups of random bytes never
+  // wait on each other (one shared copy queued them ~3.5 deep on a bank).
+  // The block walks many tiles, so the 32 KB copy is filled once.
+  __shared__ uint32_t table[256 * 32];
+  for (int i = threadIdx.x; i < 256 * 32; i += kThreads) table[i] = gear[i >> 5];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const char* lane_table = reinterpret_cast<const char*>(table) + 4 * lane;
+  // Gear value of byte k of w (k a constant): a byte permute and a shift-add
+  // give the address.
+  auto gear_of = [lane_table](uint32_t w, int k) {
+    return *reinterpret_cast<const uint32_t*>(lane_table + (__byte_perm(w, 0u, 0x4440u | k) << 7));
+  };
+
+  int s = -1;  // the stream of the current tile (tiles only grow below)
+  int64_t t_begin = 0, t_end = 0;
+  int n = 0;
+  const uint8_t* p = nullptr;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    while (tile >= t_end) {
+      ++s;
+      t_begin = wave.tile_off[s];
+      t_end = wave.tile_off[s + 1];
+      n = static_cast<int>(wave.lens[s]);
+      p = reinterpret_cast<const uint8_t*>(wave.ptrs[s]);
+    }
+    const int wi = static_cast<int>(tile - t_begin) * kThreads + threadIdx.x;
+    const int p0 = wi * 32;  // first position this thread owns
+
+    // Its bytes [p0, p0 + 32) as 8 little-endian words; 0 past n.
+    uint32_t buf[8];
+    if (p0 + 32 <= n) {
+      const uint4* v = reinterpret_cast<const uint4*>(p + p0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint4 x = __ldg(v + i);
+        buf[4 * i] = x.x;
+        buf[4 * i + 1] = x.y;
+        buf[4 * i + 2] = x.z;
+        buf[4 * i + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        uint32_t w = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          if (p0 + 4 * i + b < n) w |= static_cast<uint32_t>(p[p0 + 4 * i + b]) << (8 * b);
+        }
+        buf[i] = w;
       }
     }
-  }
-  if constexpr (!kHashes) {
-    const int64_t g = wave.tile_off[s] * kThreads + wi;  // global level-0 word
+
+    // The hash is linear: h_{p0+j} = (h_{p0-1} << (j + 1)) + local_j, where
+    // local_j hashes bytes p0..p0+j alone. So each thread hashes its own 32
+    // bytes from 0, keeping the gear values, and h_{p0-1}, the hash of the
+    // 32 bytes before p0, is the previous lane's local_31: no warm-up over
+    // the 31 bytes before p0. Lane 0's comes from the warp, one byte a lane
+    // (0 at the stream head, where h_{-1} = 0).
+    uint32_t tv[32];
+    uint32_t local = 0;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      tv[j] = gear_of(buf[j >> 2], j & 3);
+      local = (local << 1) + tv[j];
+    }
+    const int q = p0 - 32 * lane - 32 + lane;  // byte `lane` of the 32 before the warp
+    uint32_t head = q >= 0 && q < n ? gear_of(p[q], 0) << (31 - lane) : 0u;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) head += __shfl_xor_sync(kFull, head, d);
+    const uint32_t before = __shfl_up_sync(kFull, local, 1);
+    const uint32_t h0 = lane == 0 ? head : before;
+    // Candidates are rare: find whether the word has one (the least masked
+    // hash is 0) first, and build the word only then.
+    uint32_t h = h0, least = kFull;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      h = (h << 1) + tv[j];
+      least = min(least, h & mask);
+    }
+    uint32_t word = 0;
+    if (least == 0u) {
+      h = h0;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        h = (h << 1) + tv[j];
+        word |= static_cast<uint32_t>((h & mask) == 0u) << j;
+      }
+      const int left = n - p0;  // positions of this word inside the stream
+      if (left < 32) word &= left > 0 ? (1u << left) - 1u : 0u;
+    }
+
+    const int64_t g = t_begin * kThreads + wi;  // global level-0 word
     l0[g] = word;
     const uint32_t any = __ballot_sync(kFull, word != 0u);
-    if ((threadIdx.x & 31) == 0) l1[g >> 5] = any;
+    if (lane == 0) l1[g >> 5] = any;
+    if (any) {  // warp-uniform: the whole warp takes the shuffles
+      const unsigned mine = __popc(word);
+      unsigned incl = mine;  // inclusive prefix over the lanes
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const unsigned up = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += up;
+      }
+      unsigned base = 0;
+      if (lane == 31) base = atomicAdd(count + s, incl);
+      unsigned slot = __shfl_sync(kFull, base, 31) + incl - mine;
+      int* out = list + static_cast<int64_t>(s) * kListCap;
+      for (uint32_t w = word; w != 0u && slot < kListCap; w &= w - 1u, ++slot) {
+        out[slot] = p0 + __ffs(w) - 1;
+      }
+    }
   }
 }
 
@@ -189,36 +316,123 @@ __device__ int64_t next_candidate(const uint32_t* __restrict__ L0,
   return -1;
 }
 
-// Phase B: one warp per stream walks its bitmap with the carry in a register
-// and sets cut_mask[pos_off[s] + cut] (cut_mask is zero on entry).
-__global__ void cdc_phase_b(Wave wave, const uint32_t* __restrict__ l0,
-                            const uint32_t* __restrict__ l1, int64_t min_size,
-                            int64_t max_size, bool* __restrict__ cut_mask) {
+// The next power of two >= x (x >= 1).
+__device__ __forceinline__ int pow2_at_least(int x) {
+  return x <= 1 ? 1 : 1 << (32 - __clz(x - 1));
+}
+
+// Phase B: one block per stream selects the cuts with the carry in a
+// register. positions[cut_off[s] + k] = k-th cut, then n up to m_cut; row s
+// of `rows` = (n_cuts, n_chunks, route).
+__global__ void __launch_bounds__(kWalkThreads)
+cdc_phase_b(Wave wave, const uint32_t* __restrict__ l0, const uint32_t* __restrict__ l1,
+            const unsigned* __restrict__ count, const int* __restrict__ list,
+            int64_t min_size, int64_t max_size, int* __restrict__ positions,
+            int* __restrict__ rows) {
+  __shared__ int cand[kListCap];
+  __shared__ int walked[2];  // n_cuts, last cut (-1 without one)
   const int s = blockIdx.x;
+  const int tid = threadIdx.x;
   const int64_t n = wave.lens[s];
-  const int64_t t0 = wave.tile_off[s];
-  const int64_t n_l0 = (wave.tile_off[s + 1] - t0) * kThreads;
-  const uint32_t* L0 = l0 + t0 * kThreads;
-  const uint32_t* L1 = l1 + t0 * kTileL1;
-  bool* out = cut_mask + wave.pos_off[s];
-  int64_t sp = 0;
-  for (;;) {
-    const int64_t lo = sp + min_size;
-    if (lo >= n) break;
-    const int64_t hard = lo > sp + max_size - 1 ? lo : sp + max_size - 1;
-    const int64_t c = next_candidate(L0, L1, n_l0, lo, hard);
-    const int64_t cut = c >= 0 ? c : hard;
-    if (cut >= n) break;
-    if (threadIdx.x == 0) out[cut] = true;
-    sp = cut + 1;
+  const int64_t m_cut = wave.cut_off[s + 1] - wave.cut_off[s];
+  int* out = positions + wave.cut_off[s];
+  const unsigned c = count[s];
+  const bool listed = c <= static_cast<unsigned>(kListCap);  // block-uniform
+
+  if (listed) {
+    // Sort the stream's candidates ascending: bitonic over a power-of-two
+    // span padded with INT_MAX, which is above every position.
+    const int span = pow2_at_least(static_cast<int>(c));
+    const int* in = list + static_cast<int64_t>(s) * kListCap;
+    for (int i = tid; i < span; i += kWalkThreads) cand[i] = i < static_cast<int>(c) ? in[i] : 0x7fffffff;
+    __syncthreads();
+    for (int k = 2; k <= span; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int i = tid; i < span; i += kWalkThreads) {
+          const int p = i ^ j;
+          if (p > i) {
+            const int a = cand[i], b = cand[p];
+            if ((a > b) == ((i & k) == 0)) {
+              cand[i] = b;
+              cand[p] = a;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+    if (tid == 0) {
+      // One thread walks the sorted candidates once, with the chunk start in
+      // a register. A chunk starting at sp ends at its first candidate in
+      // [sp + min, sp + hard_len], else at sp + hard_len (the hard cut). So
+      // candidates beyond the window only add hard cuts, one per
+      // hard_len + 1 bytes, and a candidate closer than min to the chunk
+      // start is passed over. Every candidate costs a few register
+      // operations and no search.
+      const int64_t hard_len = min_size > max_size - 1 ? min_size : max_size - 1;
+      int nc = 0;
+      int64_t sp = 0, last = -1;
+      for (int j = 0; j < static_cast<int>(c); ++j) {
+        const int64_t cand_j = cand[j];
+        while (cand_j > sp + hard_len) {  // no candidate in this chunk's window
+          last = sp + hard_len;
+          out[nc++] = static_cast<int>(last);
+          sp = last + 1;
+        }
+        if (cand_j - sp >= min_size) {
+          last = cand_j;
+          out[nc++] = static_cast<int>(last);
+          sp = last + 1;
+        }
+      }
+      while (sp + hard_len < n) {  // hard cuts after the last candidate
+        last = sp + hard_len;
+        out[nc++] = static_cast<int>(last);
+        sp = last + 1;
+      }
+      walked[0] = nc;
+      walked[1] = static_cast<int>(last);
+    }
+  } else if (tid < 32) {
+    // Dense candidates: warp 0 walks the stream's two-level bitmap.
+    const int64_t t0 = wave.tile_off[s];
+    const int64_t n_l0 = (wave.tile_off[s + 1] - t0) * kThreads;
+    const uint32_t* L0 = l0 + t0 * kThreads;
+    const uint32_t* L1 = l1 + t0 * kTileL1;
+    int nc = 0;
+    int64_t sp = 0, last = -1;
+    for (;;) {
+      const int64_t lo = sp + min_size;
+      if (lo >= n) break;
+      const int64_t hard = lo > sp + max_size - 1 ? lo : sp + max_size - 1;
+      const int64_t next = next_candidate(L0, L1, n_l0, lo, hard);
+      const int64_t cut = next >= 0 ? next : hard;
+      if (cut >= n) break;
+      if (tid == 0) out[nc] = static_cast<int>(cut);
+      ++nc;
+      last = cut;
+      sp = cut + 1;
+    }
+    if (tid == 0) {
+      walked[0] = nc;
+      walked[1] = static_cast<int>(last);
+    }
+  }
+  __syncthreads();
+  const int nc = walked[0];
+  for (int64_t i = nc + tid; i < m_cut; i += kWalkThreads) out[i] = static_cast<int>(n);
+  if (tid == 0) {
+    rows[3 * s] = nc;
+    rows[3 * s + 1] = nc + (walked[1] + 1 < n ? 1 : 0);  // a tail chunk after the last cut
+    rows[3 * s + 2] = listed ? kRouteList : kRouteBitmap;
   }
 }
 
 Wave make_wave(const void* ptrs, const void* lens, const void* tile_off,
-               const void* pos_off, int n_streams) {
+               const void* pos_off, const void* cut_off, int n_streams) {
   return Wave{static_cast<const uint64_t*>(ptrs), static_cast<const int64_t*>(lens),
               static_cast<const int64_t*>(tile_off), static_cast<const int64_t*>(pos_off),
-              n_streams};
+              static_cast<const int64_t*>(cut_off), n_streams};
 }
 
 }  // namespace
@@ -233,29 +447,45 @@ extern "C" int cdc_window_hashes_launch(const void* ptrs, const void* lens,
                                         int n_streams, int64_t n_tiles, const void* gear,
                                         void* hashes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cdc_phase_a<true><<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
-      make_wave(ptrs, lens, tile_off, pos_off, n_streams),
-      static_cast<const uint32_t*>(gear), 0u, nullptr, nullptr,
-      static_cast<uint32_t*>(hashes));
+  cdc_hashes<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
+      make_wave(ptrs, lens, tile_off, pos_off, nullptr, n_streams),
+      static_cast<const uint32_t*>(gear), static_cast<uint32_t*>(hashes));
   return static_cast<int>(cudaGetLastError());
 }
 
-// l0: (n_tiles * 256,) uint32 scratch; l1: (n_tiles * 8,) uint32 scratch;
-// cut_mask: (pos_off[n_streams],) bool, zero on entry.
-extern "C" int cdc_cut_masks_launch(const void* ptrs, const void* lens, const void* tile_off,
-                                    const void* pos_off, int n_streams, int64_t n_tiles,
-                                    const void* gear, uint32_t mask, int64_t min_size,
-                                    int64_t max_size, void* l0, void* l1, void* cut_mask,
-                                    void* stream) {
+// cut_off: (n_streams + 1,) prefix sums of m_cut (see Wave). Scratch: l0
+// (n_tiles * 256,) uint32, l1 (n_tiles * 8,) uint32, count (n_streams,)
+// uint32 (zeroed here), list (n_streams * 8192,) int32. Out: positions
+// (cut_off[n_streams],) int32; rows (n_streams, 3) int32 = n_cuts, n_chunks,
+// route (0 the sorted candidate list, 1 the bitmap walk).
+extern "C" int cdc_cut_positions_launch(const void* ptrs, const void* lens, const void* tile_off,
+                                        const void* pos_off, const void* cut_off, int n_streams,
+                                        int64_t n_tiles, const void* gear, uint32_t mask,
+                                        int64_t min_size, int64_t max_size, void* l0, void* l1,
+                                        void* count, void* list, void* positions, void* rows,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Wave wave = make_wave(ptrs, lens, tile_off, pos_off, n_streams);
-  cdc_phase_a<false><<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
-      wave, static_cast<const uint32_t*>(gear), mask, static_cast<uint32_t*>(l0),
-      static_cast<uint32_t*>(l1), nullptr);
-  cudaError_t err = cudaGetLastError();
+  const Wave wave = make_wave(ptrs, lens, tile_off, pos_off, cut_off, n_streams);
+  // Phase A as many blocks as the card holds at once, each walking tiles.
+  static const int64_t resident = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cdc_phase_a, kThreads, 0);
+    return static_cast<int64_t>(sms) * per_sm;
+  }();
+  if (resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned) * n_streams, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cdc_phase_b<<<static_cast<unsigned>(n_streams), 32, 0, s>>>(
-      wave, static_cast<const uint32_t*>(l0), static_cast<const uint32_t*>(l1), min_size,
-      max_size, static_cast<bool*>(cut_mask));
+  const int64_t grid = n_tiles < resident ? n_tiles : resident;
+  cdc_phase_a<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+      wave, n_tiles, static_cast<const uint32_t*>(gear), mask, static_cast<uint32_t*>(l0),
+      static_cast<uint32_t*>(l1), static_cast<unsigned*>(count), static_cast<int*>(list));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cdc_phase_b<<<static_cast<unsigned>(n_streams), kWalkThreads, 0, s>>>(
+      wave, static_cast<const uint32_t*>(l0), static_cast<const uint32_t*>(l1),
+      static_cast<const unsigned*>(count), static_cast<const int*>(list), min_size, max_size,
+      static_cast<int*>(positions), static_cast<int*>(rows));
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,9 +35,9 @@ SIGNATURES = {
     },
     "cdc": {
         "cdc_window_hashes_launch": [_P, _P, _P, _P, ctypes.c_int, _I64, _P, _P, _P],
-        "cdc_cut_masks_launch": [
-            _P, _P, _P, _P, ctypes.c_int, _I64, _P, ctypes.c_uint32, _I64, _I64,
-            _P, _P, _P, _P,
+        "cdc_cut_positions_launch": [
+            _P, _P, _P, _P, _P, ctypes.c_int, _I64, _P, ctypes.c_uint32, _I64, _I64,
+            _P, _P, _P, _P, _P, _P, _P,
         ],
     },
     "flash_attn": {

@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.fingerprint import Fingerprint, device_fp
-from repro_torch.kernels.cdc import cdc_cut_masks_cuda, cdc_hashes_cuda
+from repro_torch.kernels.cdc import cdc_cut_positions_cuda, cdc_hashes_cuda
+from repro_torch.kernels.cdc import max_cuts as _max_cuts
 from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.kernels.fingerprint import fingerprint_chunks_cuda
 
@@ -176,31 +177,21 @@ def fp_row_words(max_size: int) -> tuple[int, int]:
     return payload, max(128, width)
 
 
-def _max_cuts(n: int, min_size: int) -> int:
-    """Static bound on the number of cuts in an n-byte stream: every cut
-    advances the chunk start by at least min_size + 1 bytes."""
-    return n // (min_size + 1) + 1
-
-
-def _chunk_rows(stream_u8, cut_mask, *, n: int, min_size: int, max_size: int):
+def _chunk_rows(stream_u8, cutpos, *, n: int, max_size: int) -> torch.Tensor:
     """Segment one stream into fixed-width fingerprint rows (plain torch).
 
-    Returns (rows (M, width) uint32, cutpos (m_cut,) int32, n_cuts, n_chunks)
-    where M = _max_cuts(n) + 1 >= n_chunks; rows past n_chunks hold empty
-    chunks and must be sliced off by the caller. cutpos is filled with n past
-    n_cuts.
+    cutpos is the stream's (m_cut,) int32 cut positions (the first n_cuts
+    valid, the rest n). Returns rows (m_cut + 1, width) uint32, one per
+    chunk and then empty ones, which the caller slices off at n_chunks.
     """
     row_words, width = fp_row_words(max_size)
     row_bytes = row_words * 4
-    m_cut = _max_cuts(n, min_size)
     dev = stream_u8.device
-    idx = torch.nonzero(cut_mask).flatten()
-    n_cuts = int(idx.shape[0])
-    cutpos = torch.full((m_cut,), n, dtype=torch.int32, device=dev)
-    cutpos[:n_cuts] = idx.to(torch.int32)
-    starts = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev), cutpos.to(torch.int64) + 1])
-    ends = torch.full((m_cut + 1,), n - 1, dtype=torch.int64, device=dev)
-    ends[:n_cuts] = idx
+    cuts = cutpos.to(torch.int64)
+    starts = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev), cuts + 1])
+    # Row i ends at cut i; the tail chunk (row n_cuts) and the empty rows
+    # after it at n - 1 (the empty rows start at n + 1 and get length 0).
+    ends = torch.cat([cuts, torch.full((1,), n - 1, dtype=torch.int64, device=dev)]).clamp_(max=n - 1)
     lens = (ends - starts + 1).clamp(0, row_bytes)
     # One gather of M strided windows of the zero-extended stream: each row
     # holds the row_bytes after its start plus the width's padding bytes.
@@ -210,10 +201,7 @@ def _chunk_rows(stream_u8, cut_mask, *, n: int, min_size: int, max_size: int):
     rows.masked_fill_(col[None, :] >= lens[:, None], 0)
     rows = rows.view(torch.int32)
     rows[:, row_words] = lens.to(torch.int32)
-    # Tail chunk exists unless the last cut landed exactly on byte n-1.
-    last_start = int(idx[-1]) + 1 if n_cuts else 0
-    n_chunks = n_cuts + int(last_start < n)
-    return rows.view(torch.uint32), cutpos, n_cuts, n_chunks
+    return rows.view(torch.uint32)
 
 
 def cdc_cut_and_fingerprint_many(
@@ -258,16 +246,15 @@ def cut_wave_rows(
     streams: list[torch.Tensor], *, mask: int, min_size: int, max_size: int
 ) -> tuple[torch.Tensor, list[tuple[torch.Tensor, int, int, int]]]:
     """The CDC half of ``cdc_cut_and_fingerprint_many`` on a wave of
-    non-empty streams: one cut-mask launch, then each stream's chunk rows.
+    non-empty streams: one cut-positions launch, then each stream's chunk
+    rows.
 
     Returns (rows (sum M_i, width) uint32 stacked in stream order, and per
     stream (cutpos, n_cuts, n_chunks, M_i))."""
-    masks = cdc_cut_masks_cuda(streams, mask=mask, min_size=min_size, max_size=max_size)
+    cuts = cdc_cut_positions_cuda(streams, mask=mask, min_size=min_size, max_size=max_size)
     rows, per_stream = [], []
-    for s, m in zip(streams, masks):
-        r, cutpos, n_cuts, n_chunks = _chunk_rows(
-            s, m, n=int(s.shape[0]), min_size=min_size, max_size=max_size
-        )
+    for s, (cutpos, n_cuts, n_chunks) in zip(streams, cuts):
+        r = _chunk_rows(s, cutpos, n=int(s.shape[0]), max_size=max_size)
         rows.append(r.view(torch.int32))
         per_stream.append((cutpos, n_cuts, n_chunks, r.shape[0]))
     return torch.cat(rows).view(torch.uint32), per_stream
@@ -325,5 +312,5 @@ def cdc_cut_offsets(
     if int(data_u8.shape[0]) == 0:
         return np.zeros(0, dtype=np.int64)
     _count_launch("cdc")
-    m = cdc_cut_masks_cuda([data_u8], mask=mask, min_size=min_size, max_size=max_size)[0]
-    return np.flatnonzero(m.cpu().numpy())
+    cutpos, n_cuts, _ = cdc_cut_positions_cuda([data_u8], mask=mask, min_size=min_size, max_size=max_size)[0]
+    return cutpos[:n_cuts].cpu().numpy().astype(np.int64)

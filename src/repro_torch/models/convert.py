@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Block, DecoderLM, check_kind
 
@@ -55,8 +56,10 @@ def _index(tree, g: int):
     return tree[g]
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu") -> DecoderLM:
-    """The port's ``DecoderLM`` holding the JAX parameter tree's values."""
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> DecoderLM:
+    """The port's ``DecoderLM`` holding the JAX parameter tree's values, on
+    the card unless ``device`` names another (``resolve_device``)."""
+    device = resolve_device(device)
     for kind in cfg.block_pattern:
         check_kind(kind)
     blocks = []

@@ -27,7 +27,12 @@ from repro_torch.configs import get_config
 from repro_torch.core import ChunkingSpec, DedupCluster
 from repro_torch.core.chunking import cdc_mask, chunk_cdc
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.cdc import cdc_cut_masks_cuda, cdc_hashes_cuda, gear_values
+from repro_torch.kernels.cdc import (
+    cdc_cut_masks_cuda,
+    cdc_cut_positions_cuda,
+    cdc_hashes_cuda,
+    gear_values,
+)
 from repro_torch.kernels.fingerprint import fingerprint_chunks_cuda
 from repro_torch.kernels.flash_attn import flash_attention_cuda, flash_attention_plain
 
@@ -108,6 +113,71 @@ def test_cut_mask_kernel_reads_unaligned_streams(cuda):
     got = cdc_cut_masks_cuda([data[3:]], **kw)[0]
     exp = cdc_cut_masks_cuda([data[3:].cpu()], **kw)[0]
     assert torch.equal(got.cpu(), exp)
+
+
+def _positions_and_routes(streams, **kw):
+    """The positions kernel's result on a CUDA wave, its twin's on the same
+    bytes, and the streams per route of the one launch it made."""
+    before = cdc_cut_positions_cuda.launches
+    routes = dict(cdc_cut_positions_cuda.routes)
+    got = cdc_cut_positions_cuda(streams, **kw)
+    assert cdc_cut_positions_cuda.launches == before + 1
+    routes = {k: v - routes[k] for k, v in cdc_cut_positions_cuda.routes.items()}
+    exp = cdc_cut_positions_cuda([s.cpu() for s in streams], **kw)
+    for (g, gn, gk), (e, en, ek) in zip(got, exp):
+        assert g.device.type == "cuda" and g.dtype == torch.int32
+        assert (gn, gk) == (en, ek)
+        assert torch.equal(g.cpu(), e)
+    return got, routes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,target,mn,mx", SWEEP)
+def test_cut_positions_kernel_matches_twin(cuda, n, target, mn, mx):
+    spec = ChunkingSpec("cdc", target, mn, mx).normalized()
+    kw = dict(mask=cdc_mask(spec.chunk_size), min_size=spec.min_size, max_size=spec.max_size)
+    data = _bytes(n, n * 31 + target, cuda)
+    _, routes = _positions_and_routes([data, data[: max(1, n // 3)].clone()], **kw)
+    assert sum(routes.values()) == 2
+
+
+@pytest.mark.cuda
+def test_cut_positions_list_route_at_the_checkpoint_spec(cuda):
+    """The checkpoint's 512 KiB target gives ~1 candidate per 512 KiB: every
+    stream's candidates fit the list, and each one is walked there."""
+    kw = dict(mask=cdc_mask(512 * 1024), min_size=256 * 1024, max_size=1 << 20)
+    streams = [_bytes(n, n, cuda) for n in (24 << 20, 5 << 20, 300_001)]
+    got, routes = _positions_and_routes(streams, **kw)
+    assert routes == {"list": 3, "bitmap": 0}
+    assert got[0][1] > 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kw", [
+    (1 << 20, dict(mask=cdc_mask(16), min_size=8, max_size=64)),  # ~65 K candidates
+    (1 << 16, dict(mask=0, min_size=64, max_size=256)),  # every position a candidate
+])
+def test_cut_positions_bitmap_route_when_the_list_overflows(cuda, n, kw):
+    """A stream with more candidates than the list holds walks the bitmap;
+    the 5,000-byte stream beside it (at most 5,000 candidates) the list."""
+    got, routes = _positions_and_routes([_bytes(n, 7, cuda), _bytes(5000, 8, cuda)], **kw)
+    assert routes == {"list": 1, "bitmap": 1}
+    assert got[0][1] > n // kw["max_size"]
+
+
+@pytest.mark.cuda
+def test_cut_positions_stream_shorter_than_min_size(cuda):
+    kw = dict(mask=cdc_mask(2048), min_size=1024, max_size=4096)
+    [(pos, n_cuts, n_chunks)], _ = _positions_and_routes([_bytes(100, 3, cuda)], **kw)
+    assert (n_cuts, n_chunks) == (0, 1)
+    assert pos.tolist() == [100]
+
+
+@pytest.mark.cuda
+def test_cut_positions_kernel_reads_unaligned_streams(cuda):
+    data = _bytes(100_000, 5, cuda)
+    kw = dict(mask=cdc_mask(2048), min_size=512, max_size=8192)
+    _positions_and_routes([data[3:], data[1:77_777]], **kw)
 
 
 @pytest.mark.cuda

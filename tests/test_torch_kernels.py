@@ -23,7 +23,15 @@ from repro.kernels import ref as jref
 from repro.kernels.cdc import cdc_cut_masks_pallas, cdc_hashes_pallas
 from repro.kernels.fingerprint import fingerprint_chunks_pallas
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.cdc import cdc_cut_masks_cuda, cdc_hashes_cuda, gear_values
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.cdc import (
+    cdc_cut_masks_cuda,
+    cdc_cut_masks_plain,
+    cdc_cut_positions_cuda,
+    cdc_cut_positions_plain,
+    cdc_hashes_cuda,
+    gear_values,
+)
 from repro_torch.kernels.fingerprint import fingerprint_chunks_cuda
 
 _GEAR = np.array(GEAR_TABLE, dtype=np.uint32)
@@ -185,6 +193,91 @@ def test_cut_mask_rejects_bad_waves():
         cdc_cut_masks_cuda([s, s[:0]], mask=255, min_size=4, max_size=16)
     with pytest.raises(ValueError):
         cdc_cut_masks_cuda([s], mask=255, min_size=0, max_size=16)
+
+
+@pytest.mark.parametrize("n,target,mn,mx", SWEEP)
+def test_cut_positions_twin_matches_scalar_and_pallas(n, target, mn, mx):
+    """The positions output: the first n_cuts slots hold the scalar loop's
+    cuts, the rest n; n_chunks counts the tail chunk too."""
+    data = np.random.default_rng(n * 31 + target).integers(0, 256, size=n, dtype=np.uint8).tobytes()
+    spec = ChunkingSpec("cdc", target, mn, mx).normalized()
+    kw = dict(mask=cdc_mask(spec.chunk_size), min_size=spec.min_size, max_size=spec.max_size)
+    t = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    [(pos, n_cuts, n_chunks)] = cdc_cut_positions_plain([t], **kw)
+    [(via_wrapper, *counts)] = cdc_cut_positions_cuda([t], **kw)
+    assert torch.equal(via_wrapper, pos) and counts == [n_cuts, n_chunks]
+    assert pos.dtype == torch.int32 and pos.shape == (tops._max_cuts(n, spec.min_size),)
+    np.testing.assert_array_equal(pos[:n_cuts].numpy(), _scalar_loop_cuts(data, spec))
+    np.testing.assert_array_equal(pos[:n_cuts].numpy(), _pallas_cuts(data, spec))
+    assert bool((pos[n_cuts:] == n).all())
+    assert n_chunks == len(list(chunk_cdc_scalar(data, spec)))
+
+
+@pytest.mark.parametrize("buf", [256 * 1024, 2 * 1024 * 1024])
+def test_chunk_rows_from_positions_match_the_mask_route(buf):
+    """The port's rows glue fed cut positions gives the JAX package's rows,
+    cut positions, n_cuts and n_chunks fed the cut mask, on the seed-15
+    waves."""
+    import sys
+    from pathlib import Path
+
+    from repro.kernels import ops as jops
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    kw = dict(mask=cdc_mask(8 * 1024), min_size=4 * 1024, max_size=16 * 1024)
+    streams = chip_smoke.seed15_wave(buf)
+    tstreams = [torch.from_numpy(s) for s in streams]
+    masks = cdc_cut_masks_plain(tstreams, **kw)
+    cuts = cdc_cut_positions_cuda(tstreams, **kw)
+    for s, t, m, (pos, n_cuts, n_chunks) in zip(streams, tstreams, masks, cuts):
+        rows = tops._chunk_rows(t, pos, n=s.shape[0], max_size=kw["max_size"])
+        jrows, jpos, jn_cuts, jn_chunks = jops._chunk_rows(
+            jnp.asarray(s), jnp.asarray(m.numpy()), n=s.shape[0], min_size=kw["min_size"], max_size=kw["max_size"]
+        )
+        assert (n_cuts, n_chunks) == (int(jn_cuts), int(jn_chunks))
+        np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
+        np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
+
+
+def test_cut_positions_reject_streams_of_2_gib():
+    """Positions are int32, as in the JAX contract: a stream of 2^31 bytes
+    or more raises before anything reads it."""
+    big = torch.zeros(1, dtype=torch.uint8).expand(1 << 31)
+    with pytest.raises(ValueError, match="2\\^31"):
+        cdc_cut_positions_cuda([big], mask=255, min_size=4, max_size=16)
+    with pytest.raises(ValueError):
+        cdc_cut_positions_cuda([torch.zeros(3, dtype=torch.uint8)], mask=255, min_size=8, max_size=4)
+
+
+def test_cut_wrapper_constants_match_the_kernel_source():
+    """The wrapper sizes the kernel's scratch and names its routes from
+    constants of csrc/cdc.cu: the positions per phase-A tile, the list's
+    slots per stream and the route numbers."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import cdc
+
+    src = (Path(cdc.__file__).resolve().parent.parent / "csrc" / "cdc.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert cdc.TILE == const["kThreads"] * 32
+    assert cdc.LIST_CAP == const["kListCap"]
+    assert cdc.ROUTES[const["kRouteList"]] == "list" and cdc.ROUTES[const["kRouteBitmap"]] == "bitmap"
+
+
+def test_params_from_numpy_needs_cuda_unless_told_cpu():
+    """An entry point of the port runs on the card unless the caller asks
+    for the CPU: without ``device`` the weights go to CUDA, and where there
+    is none the call raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import params_from_numpy
+
+    with pytest.raises(RuntimeError):
+        params_from_numpy({}, get_config("qwen2.5-32b").reduced())
 
 
 _SASS = """

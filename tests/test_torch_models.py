@@ -48,7 +48,7 @@ def pair(dtype: str = "float32", seed: int = 0, **overrides):
     jm = jbuild_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(seed))
     tm = build_model(tcfg, device="cpu")
-    return jm, jp, tm, params_from_numpy(numpy_tree(jp), tcfg)
+    return jm, jp, tm, params_from_numpy(numpy_tree(jp), tcfg, device="cpu")
 
 
 def _np(x):
@@ -169,7 +169,7 @@ def test_params_round_trip(weight_quant):
     jcfg = dataclasses.replace(jget_config(ARCH).reduced(), weight_quant=weight_quant)
     tcfg = dataclasses.replace(get_config(ARCH).reduced(), weight_quant=weight_quant)
     tree = numpy_tree(jbuild_model(jcfg).init(jax.random.PRNGKey(5)))
-    back = params_to_numpy(params_from_numpy(tree, tcfg), tcfg)
+    back = params_to_numpy(params_from_numpy(tree, tcfg, device="cpu"), tcfg)
     flat_a, def_a = jax.tree.flatten(tree)
     flat_b, def_b = jax.tree.flatten(back)
     assert def_a == def_b

@@ -110,7 +110,7 @@ def _servers():
     tm = build_model(tcfg, device="cpu")
     kw = dict(max_len=112, block_tokens=8)
     js = JBatchedServer(jm, jp, JDedupCluster.create(4, chunking=JChunkingSpec("fixed", 64 * 1024)), JServeConfig(**kw))
-    ts = BatchedServer(tm, params_from_numpy(tree, tcfg), DedupCluster.create(4, chunking=ChunkingSpec("fixed", 64 * 1024)),
+    ts = BatchedServer(tm, params_from_numpy(tree, tcfg, device="cpu"), DedupCluster.create(4, chunking=ChunkingSpec("fixed", 64 * 1024)),
                        ServeConfig(**kw))
     return js, ts
 
