@@ -12,7 +12,9 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    source, in parallel) and print the build seconds; read the fingerprint
    kernel's integer operations per word from its SASS (``cuobjdump``);
 2. hold each dedup kernel against its plain torch twin on the card, at exact
-   equality, on its own test shapes; the seed-15 bench wave must give the
+   equality, on its own test shapes (the window hashes also on a stream
+   longer than 2^31 bytes, around position 2^31 and at its end, freed
+   before phase 3); the seed-15 bench wave must give the
    pinned n_chunks / boundary_checksum (24/956437 at 0.25 MiB, 201/71402112
    at 2 MiB), and its cut positions and masks must equal the twin's;
 3. the checkpoint path at full size: one decoder layer of Qwen2.5-32B at
@@ -24,7 +26,8 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    phase and read just after;
 4. time each dedup kernel and its plain twin at that path's shapes and
    compare the cut positions and the whole fingerprint block with the
-   twin; split the cut kernel's time into its two phases (``torch.profiler``);
+   twin; split the cut kernel's time into its two phases and take the
+   window-hash kernel's device time (``torch.profiler``);
    hold the cut kernel against the twin on ``bitmap_route_wave`` too, so
    both of its routes run (the main path takes only the list route);
 5. hold the flash-attention kernel against its plain version on the card:
@@ -101,6 +104,8 @@ BF16_FLOP_PER_S = 989e12
 # cores). tools/flash_planted_faults.py plants dropped tiles in the late
 # rows and shows that this check fails them.
 FLASH_RTOL = {"float32": 2e-4, "bfloat16": 1.6e-2}
+# A window-hash stream longer than 2^31 bytes (2.2 GB in, 8.9 GB out).
+LONG_STREAM = (1 << 31) + (1 << 26) + 7
 PREFILL_TOKENS = 8192
 PREFILL_CACHE = 8200
 DECODE_TOKENS = 8
@@ -323,6 +328,17 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
     for n in (33, 5000, 1 << 24):
         data = torch.from_numpy(gen.integers(0, 256, size=n, dtype=np.uint8)).to(dev)
         compare("cdc_hash", cdc_hashes_cuda(data), cdc_hashes_plain(data), f"window-hash kernel at n={n}")
+    # A stream longer than 2^31 bytes: the windows around 2^31 and the last
+    # 64, each against the plain hash of the 32 bytes before it and itself.
+    n = LONG_STREAM
+    data = torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(seed))
+    got = cdc_hashes_cuda(data)
+    for lo, hi in (((1 << 31) - 64, (1 << 31) + 64), (n - 64, n)):
+        compare("cdc_hash", got[lo:hi], cdc_hashes_plain(data[lo - 32 : hi])[32:],
+                f"window-hash kernel at positions [{lo}, {hi}) of a {n}-byte stream")
+    del data, got
+    torch.cuda.empty_cache()
     wave_kw = dict(mask=cdc_mask(8 * 1024), min_size=4 * 1024, max_size=16 * 1024)
     for buf, pinned in ((256 * 1024, (24, 956437)), (2 * 1024 * 1024, (201, 71402112))):
         streams = [torch.from_numpy(s).to(dev) for s in seed15_wave(buf)]
@@ -459,6 +475,7 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
     _check(all(n > 0 for n in routes.values()), f"the cut kernel's routes over the run: {routes}")
 
     hash_ms = _timed(lambda: cdc_hashes_cuda(stream), 5)
+    hash_device_ms = device_ms_of(profile_calls(lambda: cdc_hashes_cuda(stream), 5), "cdc_hashes")
     t = time.perf_counter()
     hash_plain = cdc_hashes_plain(stream)
     torch.cuda.synchronize()
@@ -516,7 +533,7 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
             "mismatches": mismatches["cdc_hash"], "max_abs_err": err["cdc_hash"], "ms": hash_ms, "plain_ms": hash_plain_ms,
             "bound_ms": max(hash_bound_bytes, hash_bound_ops),
             "bound_by": "bytes" if hash_bound_bytes >= hash_bound_ops else "operations",
-            "library_ms": None, "shape": f"({n_big},) uint8",
+            "library_ms": None, "device_ms": hash_device_ms, "shape": f"({n_big},) uint8",
         },
     ]
     return rows_out
@@ -646,9 +663,11 @@ def profile_calls(fn, reps: int) -> dict:
 
 
 def device_ms_of(prof: dict, pattern: str) -> float:
-    """Device ms per call of the work in a ``profile_calls`` result whose
-    name holds ``pattern``."""
-    return sum(ms for name, (ms, _) in prof["by_name"].items() if pattern in name)
+    """Device ms per launch of the work in a ``profile_calls`` result whose
+    name holds ``pattern`` (summed over the names): the device ms per call
+    of work launched once a call. Per launch, not per call, because the
+    trace can miss a call's events (0.9 launches a call has been read)."""
+    return sum(ms / n for name, (ms, n) in prof["by_name"].items() if pattern in name and n)
 
 
 def device_profile(fn) -> dict:

@@ -117,6 +117,28 @@ def _deserialize_leaf(data: bytes, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr.copy()).to(device)
 
 
+# numpy dtype kinds with a torch counterpart: bool, signed and unsigned
+# integers, floats and complex numbers.
+_NUMERIC_KINDS = frozenset("biufc")
+
+
+def _on_fast_path(leaf: Any) -> bool:
+    """Whether a leaf's chunks are named on the device: every leaf with a
+    ``dtype``, as the JAX package takes them, except a numpy one of a kind
+    torch cannot hold (object, str, bytes, void, datetime), which is only
+    ever written in full."""
+    if isinstance(leaf, torch.Tensor):
+        return True
+    return hasattr(leaf, "dtype") and np.dtype(leaf.dtype).kind in _NUMERIC_KINDS
+
+
+def _as_tensor(leaf: Any) -> torch.Tensor:
+    """A fast-path leaf as a tensor on its own device (numpy on the CPU)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach()
+    return torch.from_numpy(np.ascontiguousarray(leaf))
+
+
 class DedupCheckpointer:
     """Saves and restores trees of tensors on a DedupCluster.
 
@@ -160,7 +182,8 @@ class DedupCheckpointer:
     def save(self, name: str, tree: Any) -> dict[str, Any]:
         leaves = _leaf_paths(tree)
         # Batched device fingerprinting: one kernel launch pair for ALL
-        # tensor leaves, then per-leaf ref-write decisions.
+        # leaves with a dtype (``_on_fast_path``), then per-leaf ref-write
+        # decisions.
         fp_cache = self._batch_device_fps(leaves)
         manifest = {"name": name, "leaves": []}
         full_writes: list[tuple[str, bytes]] = []
@@ -196,16 +219,16 @@ class DedupCheckpointer:
         return manifest
 
     def _batch_device_fps(self, leaves: list[tuple[str, Any]]) -> dict[str, bytes]:
-        """Chunk + fingerprint every tensor leaf of the wave on the device —
+        """Chunk + fingerprint every leaf with a dtype on the device —
         with CDC the whole tree goes through ONE fused CDC launch plus ONE
         fingerprint launch; with fixed-size chunking, one fingerprint
         launch. Returns leafpath -> raw fingerprint bytes."""
         if not self.cfg.device_fp_fastpath:
             return {}
-        arr = [(k, leaf) for k, leaf in leaves if isinstance(leaf, torch.Tensor)]
+        arr = [(k, leaf) for k, leaf in leaves if _on_fast_path(leaf)]
         if not arr:
             return {}
-        tensors = [leaf.detach().to(self.device) for _, leaf in arr]
+        tensors = [_as_tensor(leaf).to(self.device) for _, leaf in arr]
         before = kops.launch_snapshot()
         try:
             if self.spec.kind == "cdc":

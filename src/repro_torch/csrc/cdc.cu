@@ -26,18 +26,36 @@
 // integer issue rate meets its 3.35 TB/s. The cut selection itself is a
 // serial walk per stream, bound by the latency of its steps.
 //
+// The window hashes read 1 byte and write 4 per position, so they are
+// bound by bytes too: 5 B per position over 3.35 TB/s.
+//
 // What the design does about it:
-//   * cdc_phase_a runs over every tile of every stream at once (a GPU grid
-//     has no order, so nothing is carried between blocks). It reads the
-//     bytes themselves, 16 bytes per load, and keeps the gear table in
-//     shared memory, one copy per lane so that a warp's 32 random lookups
-//     take one pass (a single copy queued them ~3.5 deep on its banks). The
+//   * Both hashing kernels walk tiles of 8,192 positions (256 threads x 32)
+//     over every stream of the wave at once, as many blocks as are resident,
+//     each taking tiles blockIdx.x, blockIdx.x + gridDim.x, ... (a GPU grid
+//     has no order, so nothing is carried between blocks). They share one
+//     hashing routine, hash_word: it reads the bytes themselves, 16 bytes
+//     per load, and keeps the gear table in shared memory, one copy per lane
+//     so that a warp's 32 random lookups take one pass (a single copy queued
+//     them ~3.5 deep on its banks); the block fills the 32 KB once. The
 //     hash is linear: h_q = (h_{q-1} << 1) + T[b_q] equals the 32-term
 //     window sum because a term leaves the 32-bit word after 32 shifts, and
 //     h_{p0+j} = (h_{p0-1} << (j + 1)) + (the hash of b_p0..b_{p0+j} alone).
 //     So each thread hashes its own 32 positions from 0 and takes h_{p0-1}
 //     from the lane before it (a shuffle): one lookup per byte and no
-//     warm-up over the bytes before. It writes one 32-bit candidate word
+//     warm-up over the bytes before.
+//   * cdc_hashes stages each warp's 32 x 32 hashes in shared memory (4 KB)
+//     and writes them out as 16-byte stores, so one warp store instruction
+//     writes 512 contiguous bytes (a thread storing its own 32 words wrote 4
+//     bytes into each of 32 lines per instruction). Lane l puts its chunk i
+//     (4 hashes) at chunk i ^ (l & 7) of row l: each 8-lane phase of the
+//     staging stores, and of the read-out of contiguous 128-byte rows,
+//     touches 8 distinct 16-byte bank groups, so neither waits on a bank.
+//     The stores are evict-first (__stcs): the hashes stream past the L2
+//     (1.13 GB for the largest checkpoint leaf); on an H100 they took ~2 %
+//     off the kernel's device time against plain stores (PERF.md,
+//     tools/cut_quick.py).
+//   * cdc_phase_a writes one 32-bit candidate word per thread
 //     (level 0); a __ballot_sync of "word != 0" gives a level-1 word with
 //     one bit per level-0 word. A warp with a candidate also appends the
 //     positions to its stream's list (one atomicAdd per warp on the
@@ -59,8 +77,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;           // phase-A threads per block; x 32 positions each
+constexpr int kThreads = 256;           // hashing threads per block; x 32 positions each
+constexpr int kTile = kThreads * 32;    // positions per tile
 constexpr int kTileL1 = kThreads / 32;  // level-1 words per tile
+constexpr int kTableBytes = 256 * 32 * 4;  // the gear table, one copy per lane
+// cdc_hashes' dynamic shared memory: the tables, then 4 KB of staging per warp.
+constexpr int kHashSmem = kTableBytes + kThreads * 32 * 4;
 constexpr int kListCap = 8192;          // candidate slots per stream (32 KiB)
 constexpr int kWalkThreads = 512;       // phase-B threads per block (one block per stream)
 constexpr unsigned kFull = 0xffffffffu;
@@ -71,45 +93,48 @@ constexpr int kRouteBitmap = 1;
 struct Wave {
   const uint64_t* ptrs;     // (S,) stream base addresses, 16-byte aligned
   const int64_t* lens;      // (S,) byte lengths, all >= 1 (< 2^31 for cuts)
-  const int64_t* tile_off;  // (S+1,) prefix sums of ceil(len / (kThreads * 32))
+  const int64_t* tile_off;  // (S+1,) prefix sums of ceil(len / kTile)
   const int64_t* pos_off;   // (S+1,) prefix sums of len
   const int64_t* cut_off;   // (S+1,) prefix sums of m_cut = len / (min + 1) + 1
   int n_streams;
 };
 
-// The stream s with tile_off[s] <= tile < tile_off[s+1].
-__device__ __forceinline__ int stream_of_tile(const int64_t* tile_off, int n_streams,
-                                              int64_t tile) {
-  int lo = 0, hi = n_streams;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (tile_off[mid] <= tile) lo = mid; else hi = mid;
-  }
-  return lo;
+// Fills table (kTableBytes of shared memory) with one copy of the gear table
+// per lane: entry v of lane l at byte offset v * 128 + l * 4, in bank l, so a
+// warp's 32 lookups of random bytes never wait on each other. Ends with
+// __syncthreads().
+__device__ __forceinline__ void fill_lane_tables(uint32_t* table, const uint32_t* __restrict__ gear) {
+  for (int i = threadIdx.x; i < 256 * 32; i += blockDim.x) table[i] = gear[i >> 5];
+  __syncthreads();
 }
 
-// The window-hash kernel: the u32 window hash of every position of every
-// stream, to hashes[pos_off[s] + position]. One tile per block.
-__global__ void __launch_bounds__(kThreads)
-cdc_hashes(Wave wave, const uint32_t* __restrict__ gear, uint32_t* __restrict__ hashes) {
-  __shared__ uint32_t table[256];
-  table[threadIdx.x] = gear[threadIdx.x];
-  __syncthreads();
+// Gear value of byte k of w (k a constant) from this lane's table copy
+// (lane_table = table + 4 * lane bytes): a byte permute and a shift-add give
+// the address.
+__device__ __forceinline__ uint32_t gear_of(const char* lane_table, uint32_t w, int k) {
+  return *reinterpret_cast<const uint32_t*>(lane_table + (__byte_perm(w, 0u, 0x4440u | k) << 7));
+}
 
-  const int64_t tile = blockIdx.x;
-  const int s = stream_of_tile(wave.tile_off, wave.n_streams, tile);
-  const int64_t n = wave.lens[s];
-  const uint8_t* p = reinterpret_cast<const uint8_t*>(wave.ptrs[s]);
-  const int64_t wi = (tile - wave.tile_off[s]) * kThreads + threadIdx.x;
-  const int64_t p0 = wi * 32;  // first position this thread owns
-
-  // Bytes [p0 - 32, p0 + 32) as 16 little-endian words; bytes outside [0, n)
-  // read as 0 (and are never hashed in below).
-  uint32_t buf[16];
-  if (p0 >= 32 && p0 + 32 <= n) {
-    const uint4* v = reinterpret_cast<const uint4*>(p + p0 - 32);
+// The hashing routine of both kernels. A thread owns positions off ..
+// off + 31 of a tile whose first byte is `base` (off a multiple of 32,
+// consecutive lanes on consecutive 32-position words); `left` is the count
+// of stream bytes from base on, capped at kTile (bytes at or past it read
+// as 0), and `at_head` says base is the stream's first byte. Fills tv with
+// the 32 gear values and returns h_{off-1}, the window hash of the 32 bytes
+// before the thread's first position: the previous lane's local hash, and
+// for lane 0 one byte per lane of the 32 before the warp, summed by a
+// shuffle reduction (0 before the stream head). Then
+// h_{off+j} = (h_{off-1} << (j + 1)) + (tv[0] << j) + ... + tv[j].
+// Called by a whole warp. Offsets are int: a tile holds 8,192 positions.
+__device__ __forceinline__ uint32_t hash_word(const uint8_t* base, int off, int left, bool at_head,
+                                              const char* lane_table, uint32_t (&tv)[32]) {
+  const int lane = threadIdx.x & 31;
+  // The thread's bytes as 8 little-endian words; 0 past left.
+  uint32_t buf[8];
+  if (off + 32 <= left) {
+    const uint4* v = reinterpret_cast<const uint4*>(base + off);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 2; ++i) {
       const uint4 x = __ldg(v + i);
       buf[4 * i] = x.x;
       buf[4 * i + 1] = x.y;
@@ -118,30 +143,104 @@ cdc_hashes(Wave wave, const uint32_t* __restrict__ gear, uint32_t* __restrict__ 
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < 8; ++i) {
       uint32_t w = 0;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        const int64_t q = p0 - 32 + 4 * i + b;
-        if (q >= 0 && q < n) w |= static_cast<uint32_t>(p[q]) << (8 * b);
+        if (off + 4 * i + b < left) w |= static_cast<uint32_t>(base[off + 4 * i + b]) << (8 * b);
       }
       buf[i] = w;
     }
   }
-
-  // Warm up over the 31 bytes before p0; before the stream head h stays 0.
-  uint32_t h = 0;
-#pragma unroll
-  for (int i = 1; i < 32; ++i) {
-    const uint32_t byte = (buf[i >> 2] >> (8 * (i & 3))) & 0xffu;
-    if (p0 - 32 + i >= 0) h = (h << 1) + table[byte];
-  }
+  uint32_t local = 0;
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
-    const int i = 32 + j;
-    const uint32_t byte = (buf[i >> 2] >> (8 * (i & 3))) & 0xffu;
-    h = (h << 1) + table[byte];
-    if (p0 + j < n) hashes[wave.pos_off[s] + p0 + j] = h;
+    tv[j] = gear_of(lane_table, buf[j >> 2], j & 3);
+    local = (local << 1) + tv[j];
+  }
+  const int q = off - 32 * lane - 32 + lane;  // byte `lane` of the 32 before the warp
+  uint32_t head = (q >= 0 || !at_head) && q < left ? gear_of(lane_table, base[q], 0) << (31 - lane) : 0u;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) head += __shfl_xor_sync(kFull, head, d);
+  const uint32_t before = __shfl_up_sync(kFull, local, 1);
+  return lane == 0 ? head : before;
+}
+
+// The window-hash kernel: the u32 window hash of every position of every
+// stream, to hashes[pos_off[s] + position]. A block takes tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... below n_tiles; streams may be 2^31 bytes or
+// longer (int64 once per tile, int inside it). Dynamic shared memory:
+// kHashSmem bytes.
+//
+// Each warp writes its 1,024 hashes of a tile through its 4 KB of staging.
+// Where they all lie inside the stream and their destination is 16-byte
+// aligned (always so for the wave's first stream, since hashes comes from
+// the allocator and pos_off[0] = 0), the warp stores 16 bytes a lane; a
+// later stream of a multi-stream wave whose pos_off[s] is not a multiple of
+// 4, and the partial last rows of a stream, take 4-byte stores masked by the
+// stream's length, still 128 contiguous bytes per warp instruction.
+__global__ void __launch_bounds__(kThreads, 3)  // 3 blocks of kHashSmem fill an SM's shared memory
+cdc_hashes(Wave wave, int64_t n_tiles, const uint32_t* __restrict__ gear,
+           uint32_t* __restrict__ hashes) {
+  extern __shared__ uint4 smem[];
+  uint32_t* table = reinterpret_cast<uint32_t*>(smem);
+  fill_lane_tables(table, gear);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const char* lane_table = reinterpret_cast<const char*>(table) + 4 * lane;
+  uint4* stage = smem + kTableBytes / 16 + warp * 256;  // 32 rows of 8 chunks
+  const uint32_t* stage_words = reinterpret_cast<const uint32_t*>(stage);
+  const int swz = lane & 7;
+  const int off = threadIdx.x * 32;  // first position of this thread in the tile
+  const int warp_off = warp * 1024;  // first position of this warp in the tile
+
+  int s = -1;  // the stream of the current tile (tiles only grow below)
+  int64_t t_begin = 0, t_end = 0, n = 0;
+  const uint8_t* p = nullptr;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    while (tile >= t_end) {
+      ++s;
+      t_begin = wave.tile_off[s];
+      t_end = wave.tile_off[s + 1];
+      n = wave.lens[s];
+      p = reinterpret_cast<const uint8_t*>(wave.ptrs[s]);
+    }
+    const int64_t start = (tile - t_begin) * kTile;  // the tile's first position
+    const int64_t rest = n - start;
+    const int left = rest < kTile ? static_cast<int>(rest) : kTile;
+    uint32_t tv[32];
+    uint32_t h = hash_word(p + start, off, left, start == 0, lane_table, tv);
+
+    // Stage: chunk i (hashes 4i .. 4i+3) of lane l at chunk i ^ (l & 7) of row l.
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      uint4 c;
+      c.x = h = (h << 1) + tv[4 * i];
+      c.y = h = (h << 1) + tv[4 * i + 1];
+      c.z = h = (h << 1) + tv[4 * i + 2];
+      c.w = h = (h << 1) + tv[4 * i + 3];
+      stage[lane * 8 + (i ^ swz)] = c;
+    }
+    __syncwarp();
+    uint32_t* dst = hashes + wave.pos_off[s] + start + warp_off;
+    const int valid = left - warp_off;  // this warp's positions inside the stream
+    if (valid >= 1024 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      // Chunk c = 32 r + lane of the warp's 256: row c >> 3, chunk c & 7.
+      uint4* out = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int row = 4 * r + (lane >> 3);
+        __stcs(out + 32 * r + lane, stage[row * 8 + ((lane & 7) ^ (row & 7))]);
+      }
+    } else {
+      // Position k = 32 r + lane of the warp's 1,024: row r, word lane.
+#pragma unroll 4
+      for (int r = 0; r < 32; ++r) {
+        const int k = 32 * r + lane;
+        if (k < valid) __stcs(dst + k, stage_words[r * 32 + (((lane >> 2) ^ (r & 7)) << 2) + (lane & 3)]);
+      }
+    }
+    __syncwarp();  // the staging is read out before the next tile overwrites it
   }
 }
 
@@ -155,20 +254,11 @@ __global__ void __launch_bounds__(kThreads)
 cdc_phase_a(Wave wave, int64_t n_tiles, const uint32_t* __restrict__ gear, uint32_t mask,
             uint32_t* __restrict__ l0, uint32_t* __restrict__ l1,
             unsigned* __restrict__ count, int* __restrict__ list) {
-  // One copy of the gear table per lane: entry v of lane l at byte offset
-  // v * 128 + l * 4, in bank l, so a warp's 32 lookups of random bytes never
-  // wait on each other (one shared copy queued them ~3.5 deep on a bank).
-  // The block walks many tiles, so the 32 KB copy is filled once.
   __shared__ uint32_t table[256 * 32];
-  for (int i = threadIdx.x; i < 256 * 32; i += kThreads) table[i] = gear[i >> 5];
-  __syncthreads();
+  fill_lane_tables(table, gear);
   const int lane = threadIdx.x & 31;
   const char* lane_table = reinterpret_cast<const char*>(table) + 4 * lane;
-  // Gear value of byte k of w (k a constant): a byte permute and a shift-add
-  // give the address.
-  auto gear_of = [lane_table](uint32_t w, int k) {
-    return *reinterpret_cast<const uint32_t*>(lane_table + (__byte_perm(w, 0u, 0x4440u | k) << 7));
-  };
+  const int off = threadIdx.x * 32;  // first position of this thread in the tile
 
   int s = -1;  // the stream of the current tile (tiles only grow below)
   int64_t t_begin = 0, t_end = 0;
@@ -182,52 +272,13 @@ cdc_phase_a(Wave wave, int64_t n_tiles, const uint32_t* __restrict__ gear, uint3
       n = static_cast<int>(wave.lens[s]);
       p = reinterpret_cast<const uint8_t*>(wave.ptrs[s]);
     }
-    const int wi = static_cast<int>(tile - t_begin) * kThreads + threadIdx.x;
-    const int p0 = wi * 32;  // first position this thread owns
-
-    // Its bytes [p0, p0 + 32) as 8 little-endian words; 0 past n.
-    uint32_t buf[8];
-    if (p0 + 32 <= n) {
-      const uint4* v = reinterpret_cast<const uint4*>(p + p0);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const uint4 x = __ldg(v + i);
-        buf[4 * i] = x.x;
-        buf[4 * i + 1] = x.y;
-        buf[4 * i + 2] = x.z;
-        buf[4 * i + 3] = x.w;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        uint32_t w = 0;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          if (p0 + 4 * i + b < n) w |= static_cast<uint32_t>(p[p0 + 4 * i + b]) << (8 * b);
-        }
-        buf[i] = w;
-      }
-    }
-
-    // The hash is linear: h_{p0+j} = (h_{p0-1} << (j + 1)) + local_j, where
-    // local_j hashes bytes p0..p0+j alone. So each thread hashes its own 32
-    // bytes from 0, keeping the gear values, and h_{p0-1}, the hash of the
-    // 32 bytes before p0, is the previous lane's local_31: no warm-up over
-    // the 31 bytes before p0. Lane 0's comes from the warp, one byte a lane
-    // (0 at the stream head, where h_{-1} = 0).
+    const int start = static_cast<int>(tile - t_begin) * kTile;  // the tile's first position
+    const int rest = n - start;
+    const int left = rest < kTile ? rest : kTile;
+    const int p0 = start + off;  // first position this thread owns
+    const int wi = p0 >> 5;      // its level-0 word in the stream
     uint32_t tv[32];
-    uint32_t local = 0;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      tv[j] = gear_of(buf[j >> 2], j & 3);
-      local = (local << 1) + tv[j];
-    }
-    const int q = p0 - 32 * lane - 32 + lane;  // byte `lane` of the 32 before the warp
-    uint32_t head = q >= 0 && q < n ? gear_of(p[q], 0) << (31 - lane) : 0u;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) head += __shfl_xor_sync(kFull, head, d);
-    const uint32_t before = __shfl_up_sync(kFull, local, 1);
-    const uint32_t h0 = lane == 0 ? head : before;
+    const uint32_t h0 = hash_word(p + start, off, left, start == 0, lane_table, tv);
     // Candidates are rare: find whether the word has one (the least masked
     // hash is 0) first, and build the word only then.
     uint32_t h = h0, least = kFull;
@@ -244,8 +295,8 @@ cdc_phase_a(Wave wave, int64_t n_tiles, const uint32_t* __restrict__ gear, uint3
         h = (h << 1) + tv[j];
         word |= static_cast<uint32_t>((h & mask) == 0u) << j;
       }
-      const int left = n - p0;  // positions of this word inside the stream
-      if (left < 32) word &= left > 0 ? (1u << left) - 1u : 0u;
+      const int inside = left - off;  // positions of this word inside the stream
+      if (inside < 32) word &= inside > 0 ? (1u << inside) - 1u : 0u;
     }
 
     const int64_t g = t_begin * kThreads + wi;  // global level-0 word
@@ -428,6 +479,22 @@ cdc_phase_b(Wave wave, const uint32_t* __restrict__ l0, const uint32_t* __restri
   }
 }
 
+// Blocks of kThreads that the card holds at once, with smem_bytes of dynamic
+// shared memory each, or the error that asking gave.
+struct Resident {
+  int64_t blocks;
+  cudaError_t err;
+};
+
+template <typename Kernel>
+Resident resident_blocks(Kernel kernel, int smem_bytes) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem_bytes);
+  return Resident{static_cast<int64_t>(sms) * per_sm, err};
+}
+
 Wave make_wave(const void* ptrs, const void* lens, const void* tile_off,
                const void* pos_off, const void* cut_off, int n_streams) {
   return Wave{static_cast<const uint64_t*>(ptrs), static_cast<const int64_t*>(lens),
@@ -442,13 +509,25 @@ Wave make_wave(const void* ptrs, const void* lens, const void* tile_off,
 // table. Each entry launches on `stream` and returns cudaGetLastError().
 
 // hashes: (pos_off[n_streams],) uint32, the window hash of every position.
+// Any stream length; a stream's hashes land at any word offset pos_off[s]
+// (a 16-byte-aligned one takes the vector stores).
 extern "C" int cdc_window_hashes_launch(const void* ptrs, const void* lens,
                                         const void* tile_off, const void* pos_off,
                                         int n_streams, int64_t n_tiles, const void* gear,
                                         void* hashes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cdc_hashes<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
-      make_wave(ptrs, lens, tile_off, pos_off, nullptr, n_streams),
+  // As many blocks as the card holds at once with kHashSmem each, each
+  // walking tiles; the shared-memory limit is raised once.
+  static const Resident resident = [] {
+    cudaError_t err = cudaFuncSetAttribute(cdc_hashes, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kHashSmem);
+    return err == cudaSuccess ? resident_blocks(cdc_hashes, kHashSmem) : Resident{0, err};
+  }();
+  if (resident.err != cudaSuccess) return static_cast<int>(resident.err);
+  if (resident.blocks <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t grid = n_tiles < resident.blocks ? n_tiles : resident.blocks;
+  cdc_hashes<<<static_cast<unsigned>(grid), kThreads, kHashSmem, s>>>(
+      make_wave(ptrs, lens, tile_off, pos_off, nullptr, n_streams), n_tiles,
       static_cast<const uint32_t*>(gear), static_cast<uint32_t*>(hashes));
   return static_cast<int>(cudaGetLastError());
 }
@@ -467,17 +546,12 @@ extern "C" int cdc_cut_positions_launch(const void* ptrs, const void* lens, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Wave wave = make_wave(ptrs, lens, tile_off, pos_off, cut_off, n_streams);
   // Phase A as many blocks as the card holds at once, each walking tiles.
-  static const int64_t resident = [] {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cdc_phase_a, kThreads, 0);
-    return static_cast<int64_t>(sms) * per_sm;
-  }();
-  if (resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  static const Resident resident = resident_blocks(cdc_phase_a, 0);
+  if (resident.err != cudaSuccess) return static_cast<int>(resident.err);
+  if (resident.blocks <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned) * n_streams, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t grid = n_tiles < resident ? n_tiles : resident;
+  const int64_t grid = n_tiles < resident.blocks ? n_tiles : resident.blocks;
   cdc_phase_a<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
       wave, n_tiles, static_cast<const uint32_t*>(gear), mask, static_cast<uint32_t*>(l0),
       static_cast<uint32_t*>(l1), static_cast<unsigned*>(count), static_cast<int*>(list));

@@ -25,7 +25,7 @@ import torch
 from repro_torch.core.chunking import GEAR_TABLE
 from repro_torch.kernels import _build, ref
 
-# Positions per phase-A block of csrc/cdc.cu: kThreads (256) x 32.
+# Positions per tile of csrc/cdc.cu's hashing kernels (kTile): 256 threads x 32.
 TILE = 256 * 32
 # Candidate slots per stream in csrc/cdc.cu (kListCap), and the names of the
 # cut walk's two routes by the number the kernel reports.
@@ -127,7 +127,7 @@ def cdc_hashes_cuda(data_u8: torch.Tensor) -> torch.Tensor:
 
     A CUDA tensor launches the CUDA kernel (or raises); a CPU tensor takes
     the plain torch twin. Bit-identical to ``ref.cdc_hashes`` of the gear
-    values (short windows at the stream head included).
+    values (short windows at the stream head included), at any length.
     """
     if data_u8.device.type != "cuda":
         return cdc_hashes_plain(data_u8)

@@ -68,7 +68,10 @@ def flash_attention_cuda(
     Sq, Skv >= 1, and any strides whose last one is 1 (no copy is made).
     bfloat16 is loaded by TMA, which needs q, k and v to start on a 16-byte
     boundary and every stride of a dim longer than 1 to be a multiple of 16
-    bytes; anything else raises ``ValueError``.
+    bytes; anything else raises ``ValueError``. The kernel is forward only:
+    with grad enabled and q, k or v requiring grad it raises
+    ``RuntimeError`` rather than return an output autograd sees as a
+    constant (train through ``attn_impl="dense"``).
     """
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
@@ -94,6 +97,11 @@ def flash_attention_cuda(
         _check_tma(q=q, k=k, v=v)
         if sq + skv >= 2**31 or -(-sq // _BM_BF16) > _MAX_GRID_Y:
             raise ValueError(f"need Sq + Skv < 2**31 and Sq <= {_MAX_GRID_Y * _BM_BF16}; got {sq}, {skv}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "the flash kernel has no backward: run it under torch.no_grad(), "
+            'or train through attn_impl="dense"'
+        )
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)

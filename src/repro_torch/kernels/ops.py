@@ -71,8 +71,9 @@ def flash_attention(
     raises; a CPU tensor takes the plain chunked attention. The JAX
     package's ``use_pallas`` switch and its 24k ``Skv`` cap (a TPU VMEM
     limit) are gone: the kernel streams K/V and takes any length."""
-    _count_launch("flash")
-    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    _count_launch("flash")  # after the call: a refused launch is not counted
+    return out
 
 
 def tensor_to_u32(x: torch.Tensor) -> torch.Tensor:

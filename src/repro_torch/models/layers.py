@@ -292,7 +292,10 @@ def mha(
     ``impl="chunked"`` self-attention runs the flash-attention kernel on a
     CUDA tensor (``ops.flash_attention``) and the plain ``chunked_attention``
     on a CPU tensor. The kernel takes ``mask_offset == 0`` only: any other
-    offset on a CUDA tensor raises rather than taking the plain route."""
+    offset on a CUDA tensor raises rather than taking the plain route. The
+    kernel is forward only, so on a CUDA tensor this raises under grad when
+    the inputs require grad (train through ``impl="dense"``); the CPU route
+    is differentiable."""
     b, sq, _ = x.shape
     src = x if kv_x is None else kv_x
     skv = src.shape[1]

@@ -6,6 +6,7 @@ accounting, and a checkpoint written by either package restores in the
 other. Everything compared is bytes or integers: tolerance 0.
 """
 
+import json
 import sys
 from pathlib import Path
 
@@ -121,6 +122,40 @@ def test_keys_names_and_stored_bytes_match_reference(device_cdc):
         assert tm == jm
         assert _stored(tc, tm) == _stored(jc, jm)
     assert tck.stats == jck.stats
+
+
+@pytest.mark.parametrize("device_cdc", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.uint8])
+def test_numpy_leaves_take_the_device_path_as_in_reference(dtype, device_cdc):
+    """A numpy leaf saved twice is written once and then by reference, in
+    both packages: its device fingerprint names it as a tensor's would."""
+    leaf = (np.arange(40_000) % (256 if dtype == np.uint8 else 40_000)).astype(dtype)
+    cfg = dict(fp_chunk_bytes=4096, device_cdc=device_cdc)
+    tc = tcore.DedupCluster.create(3, chunking=tcore.ChunkingSpec("fixed", 16 * 1024))
+    jc = jcore.DedupCluster.create(3, chunking=jcore.ChunkingSpec("fixed", 16 * 1024))
+    tck = DedupCheckpointer(tc, CheckpointConfig(**cfg), device="cpu")
+    jck = JCheckpointer(jc, JConfig(**cfg))
+    for name in ("a", "b"):
+        tm, jm = tck.save(name, {"w": leaf}), jck.save(name, {"w": leaf})
+        assert tm == jm
+        assert _stored(tc, tm) == _stored(jc, jm)
+    header = 4 + len(json.dumps({"dtype": np.dtype(dtype).name, "shape": [40_000]}))
+    assert tck.stats == jck.stats
+    assert tck.stats["leaves_written"] == 1 and tck.stats["leaves_ref_only"] == 1
+    assert tck.stats["bytes_sent"] == header + leaf.nbytes
+    assert (tck.stats["cdc_launches"], tck.stats["fp_launches"]) == (2 if device_cdc else 0, 2)
+    if dtype == np.float32:
+        assert tck.stats["bytes_sent"] == 160_042
+
+
+def test_numpy_leaves_torch_cannot_hold_are_written_in_full():
+    cluster = tcore.DedupCluster.create(3)
+    ckpt = DedupCheckpointer(cluster, CheckpointConfig(**_CFG), device="cpu")
+    tree = {"names": np.array(["a", "bc"]), "w": np.arange(10, dtype=np.float32)}
+    for name in ("a", "b"):
+        ckpt.save(name, tree)
+    assert ckpt.stats["leaves_written"] == 3 and ckpt.stats["leaves_ref_only"] == 1
+    assert (ckpt.stats["cdc_launches"], ckpt.stats["fp_launches"]) == (2, 2)
 
 
 def test_leaf_keys_spell_what_jax_spells():

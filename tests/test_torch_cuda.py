@@ -80,14 +80,43 @@ def test_fingerprint_kernel_matches_twin(cuda, shape):
     assert _same(got, ref.fingerprint_chunks(x))
 
 
+# A stream longer than 2^31 bytes (2.2 GB in, 8.9 GB of hashes out).
+LONG_STREAM = (1 << 31) + (1 << 26) + 7
+
+
+def hash_windows_match(data: torch.Tensor, got: torch.Tensor, spans) -> bool:
+    """``got``, the kernel's hashes of ``data``, equals the plain hashes on
+    each [lo, hi) of ``spans``: a window depends only on the 32 bytes up to
+    its position, so the plain hash of data[lo - 32 : hi] gives them."""
+    for lo, hi in spans:
+        plain = ref.cdc_hashes(gear_values(data[max(lo - 32, 0) : hi]))
+        if not _same(got[lo:hi], plain[min(lo, 32) :]):
+            return False
+    return True
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 33, 5000, 8193, 1 << 20])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1023, 1024, 1025, 5000, 8191, 8192, 8193, 8192 * 37 + 5,
+                               1 << 20, 1 << 27, LONG_STREAM])
 def test_window_hash_kernel_matches_twin(cuda, n):
-    data = _bytes(n, n, cuda)
-    before = cdc_hashes_cuda.launches
-    got = cdc_hashes_cuda(data)
-    assert cdc_hashes_cuda.launches == before + 1
-    assert _same(got, ref.cdc_hashes(gear_values(data)))
+    """Exact against the plain hashes: tails, tile edges, more tiles than the
+    card holds blocks (2^27), a view at byte offset 1 (the wrapper's clone
+    path) and, above 2^31 bytes, windows around 2^31 and at the end."""
+    if n == LONG_STREAM:
+        gen = torch.Generator(device=cuda).manual_seed(n)
+        data = torch.randint(0, 256, (n,), dtype=torch.uint8, device=cuda, generator=gen)
+        before = cdc_hashes_cuda.launches
+        got = cdc_hashes_cuda(data)
+        assert cdc_hashes_cuda.launches == before + 1
+        assert got.shape == (n,)
+        assert hash_windows_match(data, got, [((1 << 31) - 64, (1 << 31) + 64), (n - 64, n), (0, 64)])
+        return
+    data = _bytes(n + 1, n, cuda)
+    for view in (data[:n], data[1:]):
+        before = cdc_hashes_cuda.launches
+        got = cdc_hashes_cuda(view)
+        assert cdc_hashes_cuda.launches == before + 1
+        assert _same(got, ref.cdc_hashes(gear_values(view)))
 
 
 @pytest.mark.cuda
@@ -378,3 +407,24 @@ def test_chunked_mha_on_card_takes_no_plain_route(cuda):
     p48 = init_attention(torch.Generator(device=cuda).manual_seed(0), spec48, torch.float32, cuda)
     with pytest.raises(ValueError, match="head dim"):
         mha(p48, spec48, x, positions)
+
+
+@pytest.mark.cuda
+def test_chunked_mha_on_card_raises_under_grad(cuda):
+    """The flash kernel is forward only: under grad it raises rather than
+    hand autograd a constant; under no_grad it runs, one launch."""
+    from repro_torch.models.layers import AttnSpec, init_attention, mha
+
+    spec = AttnSpec(d_model=64, n_heads=4, n_kv_heads=2, head_dim=32, impl="chunked")
+    p = init_attention(torch.Generator(device=cuda).manual_seed(0), spec, torch.float32, cuda)
+    x = torch.randn(1, 8, 64, device=cuda)
+    positions = torch.arange(8, device=cuda)[None]
+    assert any(t.requires_grad for t in p.parameters())
+    before = flash_attention_cuda.launches
+    with pytest.raises(RuntimeError, match='attn_impl="dense"'):
+        mha(p, spec, x, positions)
+    assert flash_attention_cuda.launches == before
+    with torch.no_grad():
+        y = mha(p, spec, x, positions)
+    assert flash_attention_cuda.launches == before + 1
+    assert y.shape == (1, 8, 64) and bool(torch.isfinite(y).all())

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Check and time the CDC cut kernel alone, without the checkpointer.
+"""Check and time the CDC kernels alone, without the checkpointer: the cut
+kernel and the window-hash kernel.
 
     python3 tools/cut_quick.py [--seed 0] [--src DIR]
 
@@ -18,8 +19,15 @@ Each wave's cuts are held against the plain torch twin on the same inputs
 (exact), the call is timed with ``chip_smoke._timed`` (10 calls, CUDA
 events) and profiled with ``torch.profiler`` (10 calls): device time per
 call by kernel (phase A, phase B, fills, memsets, copies), the wall time
-per call and the host gap between them. It prints one JSON line per wave
-and the card's name and power limit, and exits 1 on any mismatch.
+per call and the host gap between them. It prints one JSON line per wave.
+
+Then the window-hash kernel (``cdc_hashes_cuda``) on the main path's
+largest leaf (an FFN weight, 283,115,520 B): held against
+``cdc_hashes_plain`` (exact), timed the same way, with its rate in GB/s
+over the 5 bytes per position it must move (1 read, 4 written) and its
+bound, and beside them the time of ``.to(torch.int32)`` on the same bytes
+(the same traffic, no hashing). It prints one JSON line for it, the
+card's name and power limit, and exits 1 on any mismatch.
 
 ``--src`` measures another source tree (a ``git archive`` of an earlier
 commit unpacked into a git-ignored directory), for parent / change runs in
@@ -43,8 +51,8 @@ REPS = 10
 
 
 # Kinds of device work in a call, by a part of their names in the profile.
-KINDS = {"phase_a": "cdc_phase_a", "phase_b": "cdc_phase_b", "scatter": "index_put", "fill": "Fill",
-         "memset": "Memset", "copy_htod": "Memcpy HtoD", "copy_dtoh": "Memcpy DtoH"}
+KINDS = {"phase_a": "cdc_phase_a", "phase_b": "cdc_phase_b", "hash": "cdc_hashes", "scatter": "index_put",
+         "fill": "Fill", "memset": "Memset", "copy_htod": "Memcpy HtoD", "copy_dtoh": "Memcpy DtoH"}
 
 
 def profile(fn) -> dict:
@@ -132,6 +140,29 @@ def main() -> int:
                 "mismatches": mismatches, "routes": routes, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "profile": profile(fn)}
         print(json.dumps(line), flush=True)
+
+    big = max(main_streams, key=lambda s: s.numel())
+    n = int(big.numel())
+    fn = lambda: cdc.cdc_hashes_cuda(big)  # noqa: E731
+    got = fn()
+    t = time.perf_counter()
+    exp = cdc.cdc_hashes_plain(big)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    mismatches = int((got.view(torch.int32) != exp.view(torch.int32)).sum())
+    del got, exp
+    bad += mismatches
+    ms = chip_smoke._timed(fn, REPS)
+    prof = profile(fn)
+    bound_bytes = 5 * n / chip_smoke.HBM_BYTES_PER_S * 1e3
+    bound_ops = chip_smoke.HASH_OPS_PER_BYTE * n / chip_smoke.INT32_OPS_PER_S * 1e3
+    # A yardstick with the same traffic: widening the bytes to int32.
+    widen_ms = chip_smoke._timed(lambda: big.to(torch.int32), REPS)
+    line = {"kernel": "window hash", "bytes": n, "mismatches": mismatches, "ms": ms,
+            "device_ms": prof["ms"]["hash"], "gb_per_s": 5 * n / ms * 1e-6,
+            "plain_ms": plain_ms, "bound_ms": max(bound_bytes, bound_ops),
+            "widen_to_int32_ms": widen_ms, "profile": prof}
+    print(json.dumps(line), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
