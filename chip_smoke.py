@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the dedup checkpoint
-save, and Qwen2.5-32B prefill and prefix-cache serving at full width.
+save, training with dedup checkpoints at the full width of
+LLaVA-NeXT-Mistral-7B, and Qwen2.5-32B prefill and prefix-cache serving at
+full width.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -30,6 +32,24 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    window-hash kernel's device time (``torch.profiler``);
    hold the cut kernel against the twin on ``bitmap_route_wave`` too, so
    both of its routes run (the main path takes only the list route);
+4b. the train path at full width: LLaVA-NeXT-Mistral-7B's backbone from
+   the port's registry, 2 of its 32 layers, bf16, ``attn_impl="dense"``,
+   ``remat="full"``, random weights from ``--seed``; shape ``train_4k``
+   (576 bf16 patch embeddings + 3,520 text tokens from
+   ``SyntheticLMData``), global batch 2 in 2 microbatches, AdamW; the state
+   (9.78 GB, 49 leaves) checkpointed by ``train_loop``'s hook through
+   ``DedupCheckpointer`` on ``DedupCluster.create(4, replicas=2,
+   chunking=ChunkingSpec("fixed", 256 KiB))``. ``examples/train_e2e.py``'s
+   traffic (``train_traffic``): steps 0-1 saving step-2, a node crash,
+   ``add_node`` and ``scrub``, a restore of step-2 (bitwise against the
+   live state, the same loss on step 2's batch), an identical re-save
+   (all ref-only, 0 B sent), steps 2-3 resumed saving step-4. Every save
+   makes 1 cut + 1 fingerprint launch; the counts are set to 0 just
+   before the traffic and read just after. Then the cut and fingerprint
+   kernels are held against their twins on the train state's wave (every
+   stream's positions and counts, every fingerprint row) and timed there.
+   Everything is freed before phase 5 (``torch.cuda.memory_allocated()``
+   back to its level);
 5. hold the flash-attention kernel against its plain version on the card:
    the (causal, window) x (H, K) grid, (40, 8) heads at hd 128, float32 and
    bfloat16, Sq != Skv and ragged lengths, counting the elements beyond
@@ -52,7 +72,7 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    ones, 8 generated, blocks of 8 tokens, 4 requests), then request 0's
    prompt again, which must give the same tokens.
 
-It prints ``main_path``, ``prefill`` and ``serving`` JSON lines, a
+It prints ``main_path``, ``train``, ``prefill`` and ``serving`` JSON lines, a
 ``kernels`` JSON line, the card's name and power limit from nvidia-smi, and
 last ``{"ok": true, "device": ...}``. It exits non-zero without printing a
 result when torch sees no CUDA device or the repository's package is not
@@ -65,6 +85,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -106,6 +127,14 @@ BF16_FLOP_PER_S = 989e12
 FLASH_RTOL = {"float32": 2e-4, "bfloat16": 1.6e-2}
 # A window-hash stream longer than 2^31 bytes (2.2 GB in, 8.9 GB out).
 LONG_STREAM = (1 << 31) + (1 << 26) + 7
+# The train phase: LLaVA-NeXT-Mistral-7B (src/repro/configs/
+# llava_next_mistral_7b.py) at full width, depth 32 -> 2, shape train_4k
+# (4,096 positions, 576 of them the vision stub's), global batch 256 -> 2.
+TRAIN_ARCH = "llava-next-mistral-7b"
+TRAIN_LAYERS = 2
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 2
+TRAIN_ACCUM = 2
 PREFILL_TOKENS = 8192
 PREFILL_CACHE = 8200
 DECODE_TOKENS = 8
@@ -257,6 +286,80 @@ def _check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+class TwinCheck:
+    """Holds the dedup kernels' outputs against their plain twins, bit for
+    bit. Keeps per kernel, over every comparison, the max |kernel - twin|
+    (``err``) and the count of elements that differ (``mismatches``)."""
+
+    def __init__(self):
+        self.err = {"fingerprint": 0, "cdc_cut": 0, "cdc_hash": 0}
+        self.mismatches = dict.fromkeys(self.err, 0)
+
+    def compare(self, kind: str, a, b, what: str) -> None:
+        """Hold a kernel's output ``a`` against its twin's ``b``, bit for bit."""
+        import torch
+
+        _check(a.shape == b.shape, f"{what}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+        if a.dtype == torch.uint32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        a64, b64 = a.to(torch.int64), b.to(torch.int64)
+        if a.dtype == torch.int32:
+            a64, b64 = a64 & 0xFFFFFFFF, b64 & 0xFFFFFFFF
+        diff = (a64 - b64).abs()
+        n_diff = int((diff != 0).sum())
+        self.err[kind] = max(self.err[kind], int(diff.max()) if diff.numel() else 0)
+        self.mismatches[kind] += n_diff
+        _check(n_diff == 0, f"{what}: {n_diff} elements differ from the twin")
+
+    def cuts(self, streams: list, kw: dict, what: str) -> tuple[list, float]:
+        """Hold the cut kernel's positions and counts on the whole wave
+        against the twin's, which runs stream by stream (its int64
+        intermediates are 8 B a byte). Returns the kernel's result and the
+        twin's ms (host clock, summed over the streams)."""
+        import torch
+
+        from repro_torch.kernels.cdc import cdc_cut_positions_cuda, cdc_cut_positions_plain
+
+        got = cdc_cut_positions_cuda(streams, **kw)
+        plain_ms = 0.0
+        for i, (s, (g, gn, gk)) in enumerate(zip(streams, got)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            e, en, ek = cdc_cut_positions_plain([s], **kw)[0]
+            torch.cuda.synchronize()
+            plain_ms += (time.perf_counter() - t) * 1e3
+            self.mismatches["cdc_cut"] += int(gn != en) + int(gk != ek)
+            _check((gn, gk) == (en, ek), f"{what}, stream {i}: n_cuts, n_chunks {(gn, gk)} != {(en, ek)}")
+            self.compare("cdc_cut", g, e, f"{what}, stream {i}")
+        return got, plain_ms
+
+    def fingerprints(self, rows, fps, what: str) -> float:
+        """Hold the fingerprint kernel's ``fps`` of ``rows`` against the
+        twin's, over blocks of 64 rows (the twin's (C, W, 4) int64
+        intermediate of a whole wave does not fit at once), which cover
+        every row. Returns the twin's ms (host clock)."""
+        import torch
+
+        from repro_torch.kernels.fingerprint import fingerprint_chunks_plain
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(0, rows.shape[0], 64):
+            self.compare("fingerprint", fps[i : i + 64], fingerprint_chunks_plain(rows[i : i + 64]),
+                         f"{what}, rows {i}..{i + 63}")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+
+def fp_bound_ms(c_rows: int, width: int, ops_per_word: float) -> tuple[float, float]:
+    """(bytes, operations) lower bounds in ms of one fingerprint call on
+    (c_rows, width) uint32 rows: the rows read once and the (c_rows, 4)
+    uint32 written once over the HBM rate; ``ops_per_word`` integer
+    operations per word over the integer peak."""
+    nbytes = c_rows * width * 4 + c_rows * 16
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops_per_word * c_rows * width / INT32_OPS_PER_S * 1e3
+
+
 def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -> list[dict]:
     """Phases 2-4, the checkpoint path. Prints the ``main_path`` line and
     returns the dedup kernels' rows of the ``kernels`` line."""
@@ -272,7 +375,6 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
         cdc_cut_masks_cuda,
         cdc_cut_masks_plain,
         cdc_cut_positions_cuda,
-        cdc_cut_positions_plain,
         cdc_hashes_cuda,
         cdc_hashes_plain,
     )
@@ -286,37 +388,8 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
 
     # Per kernel, over every comparison with its twin in phases 2 and 4: the
     # max |kernel - twin| and the count of elements that differ.
-    err = {"fingerprint": 0, "cdc_cut": 0, "cdc_hash": 0}
-    mismatches = dict.fromkeys(err, 0)
-
-    def compare(kind: str, a: torch.Tensor, b: torch.Tensor, what: str) -> None:
-        """Hold a kernel's output ``a`` against its twin's ``b``, bit for bit."""
-        _check(a.shape == b.shape, f"{what}: shape {tuple(a.shape)} != {tuple(b.shape)}")
-        if a.dtype == torch.uint32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        a64, b64 = a.to(torch.int64), b.to(torch.int64)
-        if a.dtype == torch.int32:
-            a64, b64 = a64 & 0xFFFFFFFF, b64 & 0xFFFFFFFF
-        diff = (a64 - b64).abs()
-        n_diff = int((diff != 0).sum())
-        err[kind] = max(err[kind], int(diff.max()) if diff.numel() else 0)
-        mismatches[kind] += n_diff
-        _check(n_diff == 0, f"{what}: {n_diff} elements differ from the twin")
-
-    def compare_cuts(streams: list, kw: dict, what: str) -> tuple[list, float]:
-        """Hold the cut kernel's positions and counts against the twin's.
-        Returns the kernel's result and the twin's ms (host clock)."""
-        got = cdc_cut_positions_cuda(streams, **kw)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        exp = cdc_cut_positions_plain(streams, **kw)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t) * 1e3
-        for i, ((g, gn, gk), (e, en, ek)) in enumerate(zip(got, exp)):
-            mismatches["cdc_cut"] += int(gn != en) + int(gk != ek)
-            _check((gn, gk) == (en, ek), f"{what}, stream {i}: n_cuts, n_chunks {(gn, gk)} != {(en, ek)}")
-            compare("cdc_cut", g, e, f"{what}, stream {i}")
-        return got, plain_ms
+    check = TwinCheck()
+    err, mismatches, compare, compare_cuts = check.err, check.mismatches, check.compare, check.cuts
 
     # ----------------------------------------- 2. kernels vs twins, exact
     gen = np.random.default_rng(seed)
@@ -444,20 +517,10 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
     torch.cuda.synchronize()
     t_rows = time.perf_counter() - t
     fps = fingerprint_chunks_cuda(rows)
-    # The twin's (C, W, 4) int64 intermediate does not fit at once: compare
-    # and time it over blocks of 64 rows, which cover every row of the wave.
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for i in range(0, rows.shape[0], 64):
-        compare("fingerprint", fps[i : i + 64], fingerprint_chunks_plain(rows[i : i + 64]),
-                f"fingerprint kernel in rows {i}..{i + 63} of the wave")
-    torch.cuda.synchronize()
-    fp_plain_ms = (time.perf_counter() - t) * 1e3
+    fp_plain_ms = check.fingerprints(rows, fps, "fingerprint kernel on the main-path wave")
     fp_ms = _timed(lambda: fingerprint_chunks_cuda(rows), 5)
     c_rows, width = rows.shape
-    fp_bytes = c_rows * width * 4 + c_rows * 16
-    fp_bound_bytes = fp_bytes / HBM_BYTES_PER_S * 1e3
-    fp_bound_ops = fp_ops_per_word * c_rows * width / INT32_OPS_PER_S * 1e3
+    fp_bound_bytes, fp_bound_ops = fp_bound_ms(c_rows, width, fp_ops_per_word)
     del rows, fps
 
     cut_ms = _timed(lambda: cdc_cut_positions_cuda(streams, **kw), 5)
@@ -537,6 +600,304 @@ def dedup_phases(seed: int, fp_ops_per_word: float, fp_issued_per_word: float) -
         },
     ]
     return rows_out
+
+
+class PatchedLMData:
+    """``SyntheticLMData``'s text batches plus the vision stub's patch
+    embeddings, drawn in ``dtype`` on ``device`` from a generator seeded by
+    (seed, step), so a step's batch can be drawn again."""
+
+    def __init__(self, data, n_front: int, d_model: int, dtype, device, seed: int):
+        self.data, self.n_front, self.d_model = data, n_front, d_model
+        self.dtype, self.device, self.seed = dtype, device, seed
+
+    def batch(self, step: int) -> dict:
+        import torch
+
+        out = dict(self.data.batch(step))
+        gen = torch.Generator(device=self.device).manual_seed(self.seed * 1_000_003 + step)
+        out["patch_embeds"] = torch.randn((self.data.global_batch, self.n_front, self.d_model),
+                                          generator=gen, device=self.device, dtype=self.dtype)
+        return out
+
+
+class TimedSaves:
+    """A ``DedupCheckpointer`` whose saves and device waves are timed on the
+    host clock between ``sync()`` calls; each save's seconds, wave seconds
+    and stats deltas go to ``saves``. The train loop calls ``save``."""
+
+    def __init__(self, ckpt, sync):
+        self.ckpt, self.sync, self.saves = ckpt, sync, []
+        inner = ckpt._batch_device_fps
+
+        def timed_wave(leaves):
+            sync()
+            t = time.perf_counter()
+            out = inner(leaves)
+            sync()
+            self._wave_s = time.perf_counter() - t
+            return out
+
+        ckpt._batch_device_fps = timed_wave
+
+    def save(self, name: str, tree) -> dict:
+        before = dict(self.ckpt.stats)
+        self.sync()
+        t = time.perf_counter()
+        manifest = self.ckpt.save(name, tree)
+        self.sync()
+        rec = {"name": name, "s": time.perf_counter() - t, "device_wave_s": self._wave_s,
+               "leaves": len(manifest["leaves"]), "ref_only": sum(e["ref"] for e in manifest["leaves"])}
+        rec.update({k: v - before[k] for k, v in self.ckpt.stats.items() if k != "leaves_ref_only"})
+        self.saves.append(rec)
+        return manifest
+
+
+def _bits(t):
+    """A tensor's bits as an integer tensor of its element size."""
+    import torch
+
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def state_bits_differ(a: dict, b: dict) -> list[str]:
+    """Names of the tensors of two train states whose dtype, shape or bits
+    differ (parameters by name, each optimizer tree by name, the step)."""
+    import torch
+
+    pa, pb = dict(a["params"].named_parameters()), dict(b["params"].named_parameters())
+    pairs = [(f"params/{n}", pa[n], pb.get(n)) for n in pa]
+    for k in ("master", "mu", "nu", "err"):
+        for n, t in a["opt"].get(k, {}).items():
+            pairs.append((f"opt/{k}/{n}", t, b["opt"].get(k, {}).get(n)))
+    pairs.append(("opt/step", a["opt"]["step"], b["opt"]["step"]))
+    return [name for name, x, y in pairs
+            if y is None or x.dtype != y.dtype or x.shape != y.shape or not torch.equal(_bits(x), _bits(y))]
+
+
+def batch_loss(model, params, data, step: int) -> float:
+    """``loss_fn`` on step ``step``'s batch, without autograd."""
+    import torch
+
+    batch = {k: torch.as_tensor(v, device=model.device) for k, v in data.batch(step).items()}
+    with torch.no_grad():
+        return float(model.loss_fn(params, batch)[0])
+
+
+def train_traffic(model, data, cluster, ckpt, opt, seed: int, sync) -> tuple[dict, dict]:
+    """Phase 4b's traffic, after ``examples/train_e2e.py``, through the
+    port's train loop and ``ckpt``, a ``TimedSaves``: steps 0-1 saving
+    step-2; the live loss on step 2's batch; ``crash_node``, ``add_node``,
+    ``scrub``; restore step-2 with ``like=`` (bitwise against the live
+    state, the same loss on step 2's batch within 1e-3 relative); an
+    identical re-save (all ref-only, 0 B sent); steps 2-3 resumed saving
+    step-4. Every save makes 1 cut + 1 fingerprint launch. Returns (the
+    final state, the measurements)."""
+    from repro_torch.models.convert import train_state_from_tree, train_state_to_tree
+    from repro_torch.train import TrainConfig, train_loop
+    from repro_torch.train.loop import init_train_state
+
+    cfg = model.cfg
+
+    def tcfg(steps: int) -> TrainConfig:
+        return TrainConfig(steps=steps, accum=TRAIN_ACCUM, log_every=1, checkpoint_every=2, opt=opt)
+
+    state, hist = train_loop(model, data, tcfg(2), generator=seed, checkpointer=ckpt)
+    live_loss = batch_loss(model, state["params"], data, 2)
+    cluster.crash_node("oss3")
+    cluster.add_node()
+    cluster.scrub()
+    template = train_state_to_tree(init_train_state(model, seed, opt), cfg)
+    sync()
+    t = time.perf_counter()
+    tree = ckpt.ckpt.restore("step-2", like=template)
+    sync()
+    restore_s = time.perf_counter() - t
+    del template
+    restored = train_state_from_tree(tree, cfg, model.device)
+    del tree
+    differ = state_bits_differ(state, restored)
+    _check(not differ, f"restore of step-2 is not bitwise equal to the live state: {differ[:5]}")
+    restored_loss = batch_loss(model, restored["params"], data, 2)
+    _check(abs(restored_loss - live_loss) <= 1e-3 * abs(live_loss),
+           f"step 2's loss: restored {restored_loss} != live {live_loss}")
+    del state
+    ckpt.save("step-2-again", train_state_to_tree(restored, cfg))
+    again = ckpt.saves[-1]
+    _check(again["ref_only"] == again["leaves"] and again["bytes_sent"] == 0,
+           f"the re-save of the restored state wrote leaves: {again}")
+    state, hist2 = train_loop(model, data, tcfg(4), checkpointer=ckpt, state=restored, start_step=2)
+    losses = [h["loss"] for h in hist + hist2]
+    _check(len(losses) == 4 and all(math.isfinite(x) for x in losses), f"losses {losses}")
+    _check([s["name"] for s in ckpt.saves] == ["step-2", "step-2-again", "step-4"], f"saves {ckpt.saves}")
+    for s in ckpt.saves:
+        _check((s["cdc_launches"], s["fp_launches"]) == (1, 1), f"save {s['name']}: launches {s}")
+    return state, {
+        "steps": [{"step": h["step"], "loss": h["loss"], "s": h["sec"]} for h in hist + hist2],
+        "live_loss_step2": live_loss, "restored_loss_step2": restored_loss,
+        "saves": ckpt.saves, "restore_s": restore_s,
+        "space_savings": cluster.space_savings(),
+    }
+
+
+def _rss_bytes() -> tuple[int, int]:
+    """(current, peak) resident set size of this process, in bytes."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    return pages * resource.getpagesize(), resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _warm_cublas() -> None:
+    """A small matmul forward and backward on the card, so the cuBLAS
+    workspaces of the main thread and of autograd's device thread exist
+    before a phase reads ``memory_allocated()`` (they live on)."""
+    import torch
+
+    for dt in (torch.bfloat16, torch.float32):
+        a = torch.ones((64, 64), dtype=dt, device="cuda", requires_grad=True)
+        (a @ a).sum().backward()
+    torch.cuda.synchronize()
+
+
+def train_wave_check(state, cfg, spec, fp_ops_per_word: float) -> dict:
+    """The cut and fingerprint kernels at the train path's shapes: the wave
+    of the train state's tree, which a save sends through them (49 streams,
+    9.78 GB at full width). Holds the cut positions and counts, and every
+    fingerprint row's fingerprint, against the twins; times the kernels on
+    the card (CUDA events) and the twins on the host clock. Its launches
+    are outside any path's count."""
+    from repro_torch.checkpoint.dedup_ckpt import _leaf_paths
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cdc import cdc_cut_positions_cuda
+    from repro_torch.kernels.fingerprint import fingerprint_chunks_cuda
+    from repro_torch.models.convert import train_state_to_tree
+
+    streams = [ops.tensor_to_u8(leaf) for _, leaf in _leaf_paths(train_state_to_tree(state, cfg))]
+    n_streams = len(streams)
+    kw = spec.kernel_kwargs()
+    check = TwinCheck()
+    cuts, cut_plain_ms = check.cuts(streams, kw, "cut-positions kernel on the train state's wave")
+    m_cut = sum(int(p.numel()) for p, _, _ in cuts)
+    n_chunks = sum(k for _, _, k in cuts)
+    del cuts
+    cut_ms = _timed(lambda: cdc_cut_positions_cuda(streams, **kw), 3)
+    wave_bytes = sum(int(s.numel()) for s in streams)
+    cut_bound = cut_bound_ms(wave_bytes, m_cut, len(streams))
+    rows, _ = ops.cut_wave_rows(streams, **kw)
+    del streams
+    fps = fingerprint_chunks_cuda(rows)
+    fp_plain_ms = check.fingerprints(rows, fps, "fingerprint kernel on the train state's wave")
+    fp_ms = _timed(lambda: fingerprint_chunks_cuda(rows), 3)
+    c_rows, width = rows.shape
+    fp_bound = fp_bound_ms(c_rows, width, fp_ops_per_word)
+    del rows, fps
+    _check(c_rows == n_chunks, f"the train wave's rows {c_rows} != its chunks {n_chunks}")
+
+    def row(kind: str, ms: float, plain_ms: float, bound: tuple[float, float], shape: str) -> dict:
+        return {"mismatches": check.mismatches[kind], "max_abs_err": check.err[kind], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(bound),
+                "bound_by": "bytes" if bound[0] >= bound[1] else "operations", "shape": shape}
+
+    return {
+        "cdc_cut_positions_cuda": row("cdc_cut", cut_ms, cut_plain_ms, cut_bound,
+                                      f"{n_streams} streams, {wave_bytes} B, {m_cut} cut slots"),
+        "fingerprint_chunks_cuda": row("fingerprint", fp_ms, fp_plain_ms, fp_bound, f"({c_rows}, {width}) uint32"),
+    }
+
+
+def train_phase(seed: int, fp_ops_per_word: float) -> dict:
+    """Phase 4b: the train path at full width. Returns the ``train`` line;
+    the line's ``kernel_launches`` are the train path's counts,
+    ``kernel_check`` the cut and fingerprint kernels against their twins
+    at the train wave's shapes (``train_wave_check``), and
+    ``left_allocated_bytes`` what the phase left allocated on the card
+    after freeing all of it (the caller checks it is 0)."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointConfig, DedupCheckpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import ChunkingSpec, DedupCluster
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cdc import cdc_cut_positions_cuda, cdc_hashes_cuda
+    from repro_torch.kernels.fingerprint import fingerprint_chunks_cuda
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import build_train_step
+
+    _warm_cublas()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS, attn_impl="dense", remat="full")
+    model = build_model(cfg)
+    n_front = cfg.n_frontend_tokens
+    data = PatchedLMData(SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ - n_front,
+                                         global_batch=TRAIN_BATCH, seed=seed),
+                         n_front, cfg.d_model, cfg.param_dtype, model.device, seed)
+    cluster = DedupCluster.create(4, replicas=2, chunking=ChunkingSpec("fixed", 256 * 1024))
+    ckpt = TimedSaves(DedupCheckpointer(cluster, CheckpointConfig()), torch.cuda.synchronize)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    kernels = (cdc_cut_positions_cuda, fingerprint_chunks_cuda, cdc_hashes_cuda, flash_attention_cuda)
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    for kind in ops.launch_counts:
+        ops.launch_counts[kind] = 0
+    t = time.perf_counter()
+    state, line = train_traffic(model, data, cluster, ckpt, opt, seed, torch.cuda.synchronize)
+    traffic_s = time.perf_counter() - t
+    launches = {k.__name__: k.launches for k in kernels}
+    n_saves = len(ckpt.saves)
+    _check(launches["cdc_cut_positions_cuda"] == n_saves and launches["fingerprint_chunks_cuda"] == n_saves,
+           f"the train path's kernel launches {launches}, want {n_saves} cut and {n_saves} fingerprint")
+    peak = torch.cuda.max_memory_allocated()
+    rss = _rss_bytes()
+
+    # One more step (step 4) under the profiler, outside the counts.
+    step_fn = build_train_step(model, opt, TRAIN_ACCUM)
+    batch = {k: torch.as_tensor(v, device=model.device) for k, v in data.batch(4).items()}
+    torch.cuda.reset_peak_memory_stats()
+    profile = device_profile(lambda: float(step_fn(state, batch)[1]["total_loss"]))
+    step_peak = torch.cuda.max_memory_allocated()
+    kernel_check = train_wave_check(state, cfg, ckpt.ckpt.spec, fp_ops_per_word)
+
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    state_bytes = sum(p.numel() * p.element_size() for p in state["params"].parameters()) + \
+        sum(t.numel() * t.element_size() for k in ("master", "mu", "nu") for t in state["opt"][k].values())
+    positions = TRAIN_BATCH * TRAIN_SEQ
+    step_s = [s["s"] for s in line["steps"]]
+    line = {
+        "model": f"{cfg.arch_id}, {cfg.n_layers} layers, full width, {cfg.param_dtype}, attn_impl "
+                 f"{cfg.attn_impl}, remat {cfg.remat}, random weights",
+        "shape": f"train_4k: {n_front} patch + {TRAIN_SEQ - n_front} text positions, global batch "
+                 f"{TRAIN_BATCH} in {TRAIN_ACCUM} microbatches",
+        "reduced": {"n_layers": [32, TRAIN_LAYERS], "global_batch": [256, TRAIN_BATCH]},
+        "cluster": "4 nodes, 2 replicas, fixed 256 KiB chunks; device CDC (CheckpointConfig())",
+        "params": n_params, "state_bytes": state_bytes,
+        "leaves": ckpt.saves[0]["leaves"],
+        **line,
+        "step_s": step_s,
+        "tokens_per_s": [positions / s for s in step_s],
+        "profile_step4": profile,
+        "step_peak_memory_bytes": step_peak,
+        "peak_memory_bytes": peak,
+        "traffic_s": traffic_s,
+        "bytes_sent": sum(s["bytes_sent"] for s in ckpt.saves),
+        "host_rss_bytes": {"current": rss[0], "peak": rss[1]},
+        "kernel_launches": launches,
+        "kernel_check": kernel_check,
+    }
+    del state, batch, step_fn, ckpt, cluster, model, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["left_allocated_bytes"] = torch.cuda.memory_allocated() - mem_before
+    line["host_rss_bytes"]["after_free"] = _rss_bytes()[0]
+    return line
 
 
 def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
@@ -892,6 +1253,18 @@ def main() -> int:
     rows_out = dedup_phases(args.seed, fp_ops_per_word, fp_issued_per_word)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ------------------------------------ 4b. the train path at full width
+    train = train_phase(args.seed, fp_ops_per_word)
+    print("train " + json.dumps(train))
+    _check(train["left_allocated_bytes"] == 0, f"the train phase left {train['left_allocated_bytes']} B on the card")
+    # ``launches`` stays the checkpoint path's count, as the row's other
+    # numbers are of its wave; the train path's count and its wave's numbers
+    # ride beside them.
+    for row in rows_out:
+        row["launches_by_path"] = {"checkpoint": row["launches"], "train": train["kernel_launches"][row["name"]]}
+        if row["name"] in train["kernel_check"]:
+            row["train_wave"] = train["kernel_check"][row["name"]]
 
     # --------------------------------------- 5. flash kernel vs plain version
     from repro_torch.configs import get_config

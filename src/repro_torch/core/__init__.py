@@ -1,8 +1,8 @@
 """Cluster-wide deduplication for shared-nothing storage — the host cluster.
 
 These modules are host Python plus numpy. The port keeps its own copy of
-the ones the dedup checkpointer needs, so that ``repro_torch`` imports
-nothing of any other package of this repository.
+every one of them, so that ``repro_torch`` imports nothing of any other
+package of this repository.
 
 Public API:
     DedupCluster.create(n_nodes, replicas=..., chunking=...)
@@ -27,6 +27,12 @@ from repro_torch.core.write_cache import (
     PendingWrites,
     PresenceCache,
     WriteBackCache,
+)
+from repro_torch.core.baselines import (
+    CentralDedupCluster,
+    DiskLocalDedupCluster,
+    NoDedupCluster,
+    UnsupportedTransportPolicy,
 )
 from repro_torch.core.dmshard import CITEntry, DMShard, INVALID, OMAPEntry, VALID
 from repro_torch.core.messages import (
@@ -90,6 +96,8 @@ from repro_torch.core.fingerprint import (
     sha256_fp,
 )
 from repro_torch.core.placement import ClusterMap, place, primary
+from repro_torch.core.simclock import Scheduler, SimClock
+from repro_torch.core.workload import ClientRecord, WorkloadOp, WorkloadSpec, run_workload
 
 __all__ = [
     "ChunkSpec",
@@ -103,6 +111,10 @@ __all__ = [
     "PendingWrites",
     "PresenceCache",
     "WriteBackCache",
+    "CentralDedupCluster",
+    "DiskLocalDedupCluster",
+    "NoDedupCluster",
+    "UnsupportedTransportPolicy",
     "ReadError",
     "TransactionAbort",
     "WriteError",
@@ -166,4 +178,10 @@ __all__ = [
     "reorder",
     "ack_loss",
     "chaos",
+    "Scheduler",
+    "SimClock",
+    "ClientRecord",
+    "WorkloadOp",
+    "WorkloadSpec",
+    "run_workload",
 ]

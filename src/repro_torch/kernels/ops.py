@@ -178,26 +178,29 @@ def fp_row_words(max_size: int) -> tuple[int, int]:
     return payload, max(128, width)
 
 
-def _chunk_rows(stream_u8, cutpos, *, n: int, max_size: int) -> torch.Tensor:
+def _chunk_rows(stream_u8, cutpos, *, n: int, max_size: int, out: torch.Tensor) -> torch.Tensor:
     """Segment one stream into fixed-width fingerprint rows (plain torch).
 
     cutpos is the stream's (m_cut,) int32 cut positions (the first n_cuts
-    valid, the rest n). Returns rows (m_cut + 1, width) uint32, one per
-    chunk and then empty ones, which the caller slices off at n_chunks.
+    valid, the rest n). Writes the stream's first ``out.shape[0]`` rows into
+    ``out`` (a contiguous (k, width) 32-bit tensor, k <= m_cut + 1) and
+    returns them as uint32: one row per chunk, and past n_chunks empty rows
+    (length 0).
     """
     row_words, width = fp_row_words(max_size)
     row_bytes = row_words * 4
     dev = stream_u8.device
+    k = out.shape[0]
     cuts = cutpos.to(torch.int64)
-    starts = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev), cuts + 1])
+    starts = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev), cuts + 1])[:k]
     # Row i ends at cut i; the tail chunk (row n_cuts) and the empty rows
     # after it at n - 1 (the empty rows start at n + 1 and get length 0).
-    ends = torch.cat([cuts, torch.full((1,), n - 1, dtype=torch.int64, device=dev)]).clamp_(max=n - 1)
+    ends = torch.cat([cuts, torch.full((1,), n - 1, dtype=torch.int64, device=dev)])[:k].clamp_(max=n - 1)
     lens = (ends - starts + 1).clamp(0, row_bytes)
-    # One gather of M strided windows of the zero-extended stream: each row
+    # One gather of k strided windows of the zero-extended stream: each row
     # holds the row_bytes after its start plus the width's padding bytes.
     padded = torch.cat([stream_u8, torch.zeros((width * 4,), dtype=torch.uint8, device=dev)])
-    rows = padded.unfold(0, width * 4, 1)[starts.clamp(0, n)]
+    rows = torch.index_select(padded.unfold(0, width * 4, 1), 0, starts.clamp(0, n), out=out.view(torch.uint8))
     col = torch.arange(width * 4, device=dev)
     rows.masked_fill_(col[None, :] >= lens[:, None], 0)
     rows = rows.view(torch.int32)
@@ -223,7 +226,8 @@ def cdc_cut_and_fingerprint_many(
 
     Returns, per stream: (cut_positions (m_cut,) int32 — first ``n_cuts``
     valid, the rest n; n_cuts; fps (m_cut + 1, 4) uint32 — first
-    ``n_chunks`` rows valid; n_chunks), m_cut = ``_max_cuts(n, min_size)``. Exactly one CDC launch + one fingerprint launch per call,
+    ``n_chunks`` rows valid, the rest zero; n_chunks), m_cut =
+    ``_max_cuts(n, min_size)``. Exactly one CDC launch + one fingerprint launch per call,
     regardless of wave size (empty streams short-circuit without a launch).
     """
     mask, min_size, max_size = _resolve_chunk_args(spec, mask, min_size, max_size)
@@ -235,30 +239,39 @@ def cdc_cut_and_fingerprint_many(
     _count_launch("cdc")
     _count_launch("fingerprint")
     rows, per_stream = cut_wave_rows(nonempty, mask=mask, min_size=min_size, max_size=max_size)
-    fps = fingerprint_chunks_cuda(rows).split([c for _, _, _, c in per_stream])
+    fps = fingerprint_chunks_cuda(rows).split([c for _, _, c in per_stream])
     live = iter(
-        (cutpos, n_cuts, f, n_chunks)
-        for (cutpos, n_cuts, n_chunks, _), f in zip(per_stream, fps)
+        (cutpos, n_cuts, _pad_rows(f, cutpos.shape[0] + 1), n_chunks)
+        for (cutpos, n_cuts, n_chunks), f in zip(per_stream, fps)
     )
     return [next(live) if s.shape[0] > 0 else _empty_result(s) for s in streams]
 
 
 def cut_wave_rows(
     streams: list[torch.Tensor], *, mask: int, min_size: int, max_size: int
-) -> tuple[torch.Tensor, list[tuple[torch.Tensor, int, int, int]]]:
+) -> tuple[torch.Tensor, list[tuple[torch.Tensor, int, int]]]:
     """The CDC half of ``cdc_cut_and_fingerprint_many`` on a wave of
     non-empty streams: one cut-positions launch, then each stream's chunk
     rows.
 
-    Returns (rows (sum M_i, width) uint32 stacked in stream order, and per
-    stream (cutpos, n_cuts, n_chunks, M_i))."""
+    Returns (rows (sum n_chunks_i, width) uint32 stacked in stream order,
+    and per stream (cutpos, n_cuts, n_chunks)). Only the rows that hold a
+    chunk are built, each stream's written in place into one buffer for the
+    wave (a full-width train state's wave is ~14 GB of rows)."""
     cuts = cdc_cut_positions_cuda(streams, mask=mask, min_size=min_size, max_size=max_size)
-    rows, per_stream = [], []
-    for s, (cutpos, n_cuts, n_chunks) in zip(streams, cuts):
-        r = _chunk_rows(s, cutpos, n=int(s.shape[0]), max_size=max_size)
-        rows.append(r.view(torch.int32))
-        per_stream.append((cutpos, n_cuts, n_chunks, r.shape[0]))
-    return torch.cat(rows).view(torch.uint32), per_stream
+    counts = [n_chunks for _, _, n_chunks in cuts]
+    _, width = fp_row_words(max_size)
+    rows = torch.empty((sum(counts), width), dtype=torch.int32, device=streams[0].device)
+    for s, (cutpos, _, _), out in zip(streams, cuts, rows.split(counts)):
+        _chunk_rows(s, cutpos, n=int(s.shape[0]), max_size=max_size, out=out)
+    return rows.view(torch.uint32), cuts
+
+
+def _pad_rows(fps: torch.Tensor, m: int) -> torch.Tensor:
+    """``fps`` (k, 4) followed by zero rows up to (m, 4)."""
+    out = torch.zeros((m, 4), dtype=torch.int32, device=fps.device)
+    out[: fps.shape[0]] = fps.view(torch.int32)
+    return out.view(torch.uint32)
 
 
 def _empty_result(s: torch.Tensor) -> tuple[torch.Tensor, int, torch.Tensor, int]:

@@ -29,7 +29,7 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     if args.dryrun:
-        raise SystemExit("--dryrun waits for ROADMAP A10 (the mesh and dry-run layer)")
+        raise SystemExit("--dryrun waits for ROADMAP A5 (the mesh and dry-run layer)")
 
     from repro_torch.configs import get_config
     from repro_torch.core import ChunkingSpec, DedupCluster

@@ -1,11 +1,21 @@
-"""Carry a decoder's parameters between the JAX package's tree and the port.
+"""Carry a decoder's parameters and train state between the JAX package's
+tree and the port.
 
 ``params_from_numpy`` takes the tree ``repro.models.transformer.init_decoder``
 builds, as numpy arrays (bfloat16 as its ``uint16`` bits; w8a16 weights as
-int8 with their float32 ``w_scale``), and returns the port's ``DecoderLM``,
-unstacking the leading ``G`` axis of ``tree["blocks"]`` into the module
-list. ``params_to_numpy`` is its inverse. Dense weights are ``(d_in,
-d_out)`` in both packages, so nothing is transposed.
+int8 with their float32 ``w_scale``) or as tensors, and returns the port's
+``DecoderLM``, unstacking the leading ``G`` axis of ``tree["blocks"]`` into
+the module list. ``params_to_numpy`` is its inverse. Dense weights are
+``(d_in, d_out)`` in both packages, so nothing is transposed.
+
+``train_state_to_tree`` spells a train state (``repro_torch.train``) as the
+JAX package's ``{"params": ..., "opt": {"master", "mu", "nu", "step"[,
+"err"]}}`` with tensor leaves on the state's device, which is the tree the
+train loop's checkpoint hook saves: its leaf keys, object names and stored
+bytes are the JAX package's for the same state. Stacking the block leaves
+on the group axis copies them. ``train_state_from_tree`` is its inverse;
+its block parameters and moments are views of the tree's stacked leaves
+(tensor leaves on ``device`` are not copied).
 """
 
 from __future__ import annotations
@@ -19,7 +29,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.transformer import Block, DecoderLM, check_kind
 
 
-def _tensor(a: np.ndarray, device) -> torch.Tensor:
+def _tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.array(a, order="C")  # a writable copy; keeps 0-d arrays 0-d
     if a.dtype == np.uint16:  # bfloat16 bits
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
@@ -57,8 +69,9 @@ def _index(tree, g: int):
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> DecoderLM:
-    """The port's ``DecoderLM`` holding the JAX parameter tree's values, on
-    the card unless ``device`` names another (``resolve_device``)."""
+    """The port's ``DecoderLM`` holding the JAX parameter tree's values
+    (numpy or tensor leaves), on the card unless ``device`` names another
+    (``resolve_device``)."""
     device = resolve_device(device)
     for kind in cfg.block_pattern:
         check_kind(kind)
@@ -126,3 +139,60 @@ def params_to_numpy(params: DecoderLM, cfg: ModelConfig) -> dict:
         )
     tree["tail"] = tuple(_block_tree(b) for b in params.tail)
     return tree
+
+
+# --------------------------------------------------------- train state ---
+def _tree_of_named(named: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
+    """The ``init_decoder`` tree of tensors keyed by parameter name (the
+    names ``DecoderLM.named_parameters()`` gives), blocks stacked on the
+    group axis."""
+    nested: dict = {}
+    for name, t in named.items():
+        d = nested
+        *head, last = name.split(".")
+        for part in head:
+            d = d.setdefault(part, {})
+        d[last] = t
+    blocks, tail = nested.pop("blocks", {}), nested.pop("tail", {})
+    pl = cfg.pattern_len
+    if cfg.n_groups:
+        nested["blocks"] = tuple(
+            _stack_tensors([blocks[str(g * pl + i)] for g in range(cfg.n_groups)]) for i in range(pl)
+        )
+    nested["tail"] = tuple(tail[str(i)] for i in range(len(cfg.tail_blocks)))
+    return nested
+
+
+def _stack_tensors(trees: list[dict]) -> dict:
+    return {k: _stack_tensors([t[k] for t in trees]) if isinstance(v, dict) else torch.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
+_MOMENTS = ("master", "mu", "nu", "err")
+
+
+def params_tree(params: DecoderLM, cfg: ModelConfig) -> dict:
+    """The JAX ``init_decoder`` tree of a ``DecoderLM``'s parameters, as
+    detached tensors on their device (block leaves stacked: copies)."""
+    return _tree_of_named({n: p.detach() for n, p in params.named_parameters()}, cfg)
+
+
+def train_state_to_tree(state: dict, cfg: ModelConfig) -> dict:
+    """The JAX package's train-state tree of a port train state."""
+    opt = state["opt"]
+    tree_opt = {k: _tree_of_named(opt[k], cfg) for k in _MOMENTS if k in opt}
+    tree_opt["step"] = opt["step"]
+    return {"params": params_tree(state["params"], cfg), "opt": tree_opt}
+
+
+def train_state_from_tree(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """The port's train state holding a JAX-layout train-state tree (numpy
+    leaves, bfloat16 as ``uint16`` bits, or tensors), on the card unless
+    ``device`` names another."""
+    device = resolve_device(device)
+    opt = {"step": _tensor(tree["opt"]["step"], device)}
+    for k in _MOMENTS:
+        if k in tree["opt"]:  # a moment tree has the parameters' layout
+            moments = params_from_numpy(tree["opt"][k], cfg, device)
+            opt[k] = {n: p.detach() for n, p in moments.named_parameters()}
+    return {"params": params_from_numpy(tree["params"], cfg, device), "opt": opt}

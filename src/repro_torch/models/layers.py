@@ -10,7 +10,7 @@ between the packages without a transpose.
 
 Conventions, as in the reference: activations in the config dtype; norms,
 softmax and rope math in fp32. There are no sharding annotations: the port
-runs on one card (the mesh layer is ROADMAP queue A10).
+runs on one card (the mesh layer is ROADMAP A5).
 
 ``mha`` with ``impl="chunked"`` runs the hand-written flash-attention kernel
 (``repro_torch.kernels.flash_attn``) on a CUDA tensor and the plain

@@ -1,17 +1,17 @@
 """Public model API: ``build_model(cfg, device=None) -> Model``.
 
 A port of the JAX package's ``models/model.py`` for decoder LMs. ``Model``
-exposes the functions the server calls:
+exposes the functions the train loop and the server call:
 
     init(generator)                         -> params (a DecoderLM)
+    loss_fn(params, batch)                  -> (loss, metrics)
     prefill(params, batch, cache_len)       -> (logits, caches)
     decode_step(params, caches, token, pos) -> (logits, caches)
     input_specs(shape)                      -> dict of TensorSpec
     cache_specs(shape)                      -> TensorSpec tree
 
-``prefill`` and ``decode_step`` run without autograd. ``lm_loss`` and
-``loss_fn`` come with the training slice (ROADMAP A6); encoder-decoder
-models raise.
+``loss_fn`` runs with autograd; ``prefill`` and ``decode_step`` run
+without it. Encoder-decoder models raise (ROADMAP A4c).
 """
 
 from __future__ import annotations
@@ -28,11 +28,28 @@ from repro_torch.models import transformer as T
 from repro_torch.models.transformer import TensorSpec
 
 
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean masked CE in fp32. labels < 0 are ignored. When the logits dim
+    is padded past `vocab` (sharding-friendly padded_vocab), padded ids are
+    masked to -1e30 so they carry no probability mass."""
+    lf = logits.float()
+    if vocab and lf.shape[-1] > vocab:
+        pad_mask = torch.arange(lf.shape[-1], device=lf.device) >= vocab
+        lf = torch.where(pad_mask, -1e30, lf)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels >= 0).float()
+    tot = torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll * mask) / tot, tot
+
+
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable
+    loss_fn: Callable
     prefill: Callable
     decode_step: Callable
     input_specs: Callable
@@ -51,13 +68,15 @@ def build_model(cfg: ModelConfig, device: "str | torch.device | None" = None) ->
     raises when there is no CUDA device)."""
     cfg.validate()
     if cfg.enc_dec:
-        raise NotImplementedError("encoder-decoder models are not ported yet: ROADMAP A9c")
+        raise NotImplementedError("encoder-decoder models are not ported yet: ROADMAP A4c")
     for kind in cfg.block_pattern:
         T.check_kind(kind)
     return _build_decoder(cfg, resolve_device(device))
 
 
 def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
+    aux_coeff = 0.01 if cfg.n_experts else 0.0
+
     def init(generator: "torch.Generator | int"):
         gen = generator
         if isinstance(generator, int):
@@ -76,6 +95,17 @@ def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         return x, positions
+
+    def loss_fn(params, batch):
+        x, positions = _embed_inputs(params, batch)
+        hidden, aux = T.decoder_hidden(params, cfg, x, positions)
+        n_front = x.shape[1] - batch["tokens"].shape[1]
+        if n_front:
+            hidden = hidden[:, n_front:]
+        logits = T.logits_from_hidden(params, cfg, hidden)
+        loss, n_tok = lm_loss(logits, batch["labels"], cfg.vocab)
+        total = loss + aux_coeff * aux
+        return total, {"loss": loss, "aux_loss": aux, "tokens": n_tok}
 
     @torch.no_grad()
     def prefill(params, batch, cache_len: int = 0):
@@ -111,4 +141,4 @@ def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
     def cache_specs(shape: ShapeSpec):
         return T.decoder_cache_specs(cfg, shape.global_batch, shape.seq_len)
 
-    return Model(cfg, dev, init, prefill, decode_step, input_specs, cache_specs)
+    return Model(cfg, dev, init, loss_fn, prefill, decode_step, input_specs, cache_specs)

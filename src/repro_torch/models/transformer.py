@@ -15,22 +15,24 @@ it and stores those bytes.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 # Block kinds of the JAX package that later slices port (ROADMAP queue A).
 _NOT_PORTED = {
-    "attn_local": "sliding-window attention with its ring cache, ROADMAP A9a",
-    "mla": "multi-head latent attention, ROADMAP A9b",
-    "moe": "mixture of experts, ROADMAP A9c",
-    "mamba2": "the Mamba-2 SSM, ROADMAP A9c",
-    "rglru": "the RG-LRU recurrence, ROADMAP A9c",
+    "attn_local": "sliding-window attention with its ring cache, ROADMAP A4a",
+    "mla": "multi-head latent attention, ROADMAP A4b",
+    "moe": "mixture of experts, ROADMAP A4c",
+    "mamba2": "the Mamba-2 SSM, ROADMAP A4c",
+    "rglru": "the RG-LRU recurrence, ROADMAP A4c",
 }
 
 
@@ -179,6 +181,51 @@ def init_decoder(gen, cfg: ModelConfig, device=None) -> DecoderLM:
     ]
     tail = [init_block(gen, cfg, kind, device) for kind in cfg.tail_blocks]
     return DecoderLM(embed, final_norm, lm_head, blocks, tail)
+
+
+# The products remat="dots" keeps: matmuls without batch dims, the
+# counterpart of jax.checkpoint_policies.dots_with_no_batch_dims_saveable.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under the activation checkpointing ``cfg.remat`` names:
+    "none" keeps every activation, "dots" recomputes all but the saved
+    products in the backward pass, "full" recomputes the whole group."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(_save_dots),
+        )
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def decoder_hidden(params: DecoderLM, cfg: ModelConfig, x, positions):
+    """Training forward through all blocks. Returns (hidden, aux_loss).
+    Each group of ``block_pattern`` runs under ``_remat``; the tail blocks
+    run as they are, as in the reference."""
+    pl = cfg.pattern_len
+
+    def group_body(x, aux, *blocks):
+        for blk, kind in zip(blocks, cfg.block_pattern):
+            x, _, a = block_fwd(blk, cfg, kind, x, positions, want_cache=False)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = _remat(cfg, group_body)
+    for g in range(cfg.n_groups):
+        x, aux = body(x, aux, *params.blocks[g * pl : (g + 1) * pl])
+    for i, kind in enumerate(cfg.tail_blocks):
+        x, _, a = block_fwd(params.tail[i], cfg, kind, x, positions, want_cache=False)
+        aux = aux + a
+    return L.rms_norm(params.final_norm, x, cfg.norm_eps), aux
 
 
 def decoder_prefill(params: DecoderLM, cfg: ModelConfig, x, positions, smax: int = 0):

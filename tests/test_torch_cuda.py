@@ -428,3 +428,48 @@ def test_chunked_mha_on_card_raises_under_grad(cuda):
         y = mha(p, spec, x, positions)
     assert flash_attention_cuda.launches == before + 1
     assert y.shape == (1, 8, 64) and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_train_loop_on_card_matches_cpu(cuda, remat):
+    """Two train steps of reduced LLaVA-NeXT (float32, patch embeddings,
+    2 microbatches) on the card give the CPU's losses and state within
+    2e-4; each checkpoint-hook save launches the cut and fingerprint
+    kernels once."""
+    from repro_torch.checkpoint import DedupCheckpointer
+    from repro_torch.checkpoint.dedup_ckpt import _leaf_paths
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import train_state_from_tree, train_state_to_tree
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, train_loop
+    from repro_torch.train.loop import init_train_state
+
+    cfg = dataclasses.replace(get_config("llava-next-mistral-7b").reduced(), param_dtype=torch.float32, remat=remat)
+    rng = np.random.default_rng(0)
+    patches = rng.standard_normal((4, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+
+    class Data:
+        text = SyntheticLMData(vocab=cfg.vocab, seq_len=24, global_batch=4, seed=2)
+
+        def batch(self, step):
+            return {**self.text.batch(step), "patch_embeds": patches + step}
+
+    tc = TrainConfig(steps=2, accum=2, log_every=1, checkpoint_every=1,
+                     opt=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+    cpu_model, card_model = build_model(cfg, device="cpu"), build_model(cfg)
+    cpu_init = init_train_state(cpu_model, 0, tc.opt)
+    card_init = train_state_from_tree(train_state_to_tree(cpu_init, cfg), cfg)  # copies to the card
+    cpu_state, cpu_hist = train_loop(cpu_model, Data(), tc, state=cpu_init)
+    ckpt = DedupCheckpointer(DedupCluster.create(4, replicas=2, chunking=ChunkingSpec("fixed", 64 * 1024)))
+    cut0, fp0 = cdc_cut_positions_cuda.launches, fingerprint_chunks_cuda.launches
+    card_state, card_hist = train_loop(card_model, Data(), tc, checkpointer=ckpt, state=card_init)
+    assert (cdc_cut_positions_cuda.launches - cut0, fingerprint_chunks_cuda.launches - fp0) == (2, 2)
+    assert [h["step"] for h in card_hist] == [0, 1]
+    np.testing.assert_allclose([h["loss"] for h in card_hist], [h["loss"] for h in cpu_hist], rtol=2e-4, atol=2e-4)
+    card_tree = train_state_to_tree(card_state, cfg)
+    cpu_tree = train_state_to_tree(cpu_state, cfg)
+    for (key, a), (_, b) in zip(_leaf_paths(card_tree), _leaf_paths(cpu_tree)):
+        assert a.device.type == "cuda", key
+        np.testing.assert_allclose(a.cpu().float().numpy(), b.float().numpy(), rtol=2e-4, atol=2e-4, err_msg=key)

@@ -217,7 +217,7 @@ def test_cut_positions_twin_matches_scalar_and_pallas(n, target, mn, mx):
 def test_chunk_rows_from_positions_match_the_mask_route(buf):
     """The port's rows glue fed cut positions gives the JAX package's rows,
     cut positions, n_cuts and n_chunks fed the cut mask, on the seed-15
-    waves."""
+    waves; asked for n_chunks rows, it gives the first n_chunks of them."""
     import sys
     from pathlib import Path
 
@@ -232,13 +232,18 @@ def test_chunk_rows_from_positions_match_the_mask_route(buf):
     masks = cdc_cut_masks_plain(tstreams, **kw)
     cuts = cdc_cut_positions_cuda(tstreams, **kw)
     for s, t, m, (pos, n_cuts, n_chunks) in zip(streams, tstreams, masks, cuts):
-        rows = tops._chunk_rows(t, pos, n=s.shape[0], max_size=kw["max_size"])
+        width = tops.fp_row_words(kw["max_size"])[1]
+        rows = tops._chunk_rows(t, pos, n=s.shape[0], max_size=kw["max_size"],
+                                out=torch.empty((pos.numel() + 1, width), dtype=torch.int32))
+        head = tops._chunk_rows(t, pos, n=s.shape[0], max_size=kw["max_size"],
+                                out=torch.empty((n_chunks, width), dtype=torch.int32))
         jrows, jpos, jn_cuts, jn_chunks = jops._chunk_rows(
             jnp.asarray(s), jnp.asarray(m.numpy()), n=s.shape[0], min_size=kw["min_size"], max_size=kw["max_size"]
         )
         assert (n_cuts, n_chunks) == (int(jn_cuts), int(jn_chunks))
         np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
         np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
+        np.testing.assert_array_equal(head.numpy(), np.asarray(jrows)[:n_chunks])
 
 
 def test_cut_positions_reject_streams_of_2_gib():

@@ -166,7 +166,7 @@ def test_serve_launcher_prints_the_jax_lines(capsys, monkeypatch):
     want = capsys.readouterr().out
     tserve.main([*flags, "--device", "cpu"])
     assert capsys.readouterr().out == want
-    with pytest.raises(SystemExit, match="A10"):
+    with pytest.raises(SystemExit, match="A5"):
         tserve.main([*flags, "--dryrun"])
     # --shape only sizes the reference's dry run, so the port refuses it
     with pytest.raises(SystemExit):
