@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the dedup checkpoint
 save, training with dedup checkpoints at the full width of
-LLaVA-NeXT-Mistral-7B, and Qwen2.5-32B prefill and prefix-cache serving at
-full width.
+LLaVA-NeXT-Mistral-7B, Qwen2.5-32B prefill and prefix-cache serving at
+full width, and the sliding-window families (Gemma3-12B, RecurrentGemma-2B)
+at full width.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -53,7 +54,8 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
 5. hold the flash-attention kernel against its plain version on the card:
    the (causal, window) x (H, K) grid, (40, 8) heads at hd 128, float32 and
    bfloat16, Sq != Skv and ragged lengths, counting the elements beyond
-   tolerance (``FLASH_RTOL``: relative to each element and to its row's RMS);
+   tolerance (``FLASH_RTOL``: relative to each element and to its row's RMS),
+   a count phases 6 and 8 add to;
 6. the prefill path at full width: Qwen2.5-32B from the port's registry
    with ``attn_impl="chunked"``, all 64 layers, bf16, random weights from
    ``--seed`` on the card (65.5 GB); prefill 1 x 8,192 tokens into a
@@ -63,17 +65,34 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    plain version and timed beside it and beside PyTorch's
    ``scaled_dot_product_attention`` (timed only). The bf16 kernel,
    ``flash_fwd_wgmma``, must be among the prefill profile's five largest
-   kernels, take at most twice SDPA's time, and spill no registers (its
+   kernels, take at most twice SDPA's time, and spill no registers at any
+   of its four head dims, nor may ``flash_fwd_simt<float, 256>`` (their
    registers from ``cuobjdump -res-usage``, its TFLOP/s and its nvcc
    seconds, null when the library was already built, go into its row);
 7. the serving path at full width: ``BatchedServer`` on the same model over
    ``DedupCluster.create(4, chunking=ChunkingSpec("fixed", 64 KiB))`` with
    ``repro_torch.launch.serve``'s traffic (48 shared prefix tokens, 8 random
    ones, 8 generated, blocks of 8 tokens, 4 requests), then request 0's
-   prompt again, which must give the same tokens.
+   prompt again, which must give the same tokens. Then Qwen2.5-32B is freed;
+8. the sliding-window families at full width, all layers, bf16,
+   ``attn_impl="chunked"``, random weights from ``--seed``, each alone on
+   the card: Gemma3-12B (48 layers, 5 local with window 1024 : 1 global,
+   16 / 8 heads x 256; 11.77 B parameters) and RecurrentGemma-2B (26
+   layers, (rglru, rglru, local with window 2048) x 8 + 2 rglru, 10 / 1
+   heads x 256). ``family_traffic``: prefill 1 x 8,192 tokens into
+   8,200-slot caches (the local layers' rings wrap 8 or 4 times), 8
+   teacher-forced decode steps; the counts are set to 0 just before the
+   prefill, which must launch the flash kernel once per attention layer
+   (48, 40 of them windowed; 8, all windowed), and the decode none; the
+   last decode step's logits must be within 0.05 (relative max error) of
+   a fresh prefill of all 8,200 tokens. Then the flash kernel at the
+   model's attention shapes (hd 256), with and without the window, bf16
+   and float32, is held against the plain version and timed beside it and
+   beside ``scaled_dot_product_attention``. Each model's phase must leave
+   nothing allocated on the card.
 
-It prints ``main_path``, ``train``, ``prefill`` and ``serving`` JSON lines, a
-``kernels`` JSON line, the card's name and power limit from nvidia-smi, and
+It prints ``main_path``, ``train``, ``prefill``, ``serving`` and ``family``
+JSON lines, a ``kernels`` JSON line, the card's name and power limit from nvidia-smi, and
 last ``{"ok": true, "device": ...}``. It exits non-zero without printing a
 result when torch sees no CUDA device or the repository's package is not
 beside it.
@@ -920,6 +939,45 @@ def flash_bound_ms(q, k, causal: bool, window: int) -> tuple[float, float]:
     return flop / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def band_mask(s: int, window: int, device):
+    """(s, s) bool: key j is visible to query i under the causal window
+    (i - window < j <= i), the kernel's mask at Sq = Skv."""
+    import torch
+
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    return (j <= i) & (j > i - window)
+
+
+def library_attention_ms(q, k, v, window: int, reps: int = 5) -> tuple[float, str]:
+    """PyTorch's ``scaled_dot_product_attention`` on the kernel's inputs
+    ((B, S, H, hd), transposed to its layout), ``enable_gqa``: causal, or
+    with a boolean band mask for a window. Timed under each fused backend
+    that takes the call (flash, memory-efficient, cuDNN), the math backend
+    only when none does; returns the fastest time and its backend's name."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    kw = {"attn_mask": band_mask(q.shape[1], window, q.device)} if window else {"is_causal": True}
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        if times and backend == SDPBackend.MATH:
+            break
+        with sdpa_kernel([backend]):
+            try:  # a backend that does not take these inputs raises before it launches
+                F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+            except RuntimeError:
+                continue
+            times[backend.name] = _timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw),
+                                         reps)
+    _check(bool(times), "no scaled_dot_product_attention backend takes the call")
+    name = min(times, key=times.get)
+    return times[name], name
+
+
 class FlashCheck:
     """Holds the flash kernel against its plain version and keeps, over
     every comparison, the count of elements beyond ``FLASH_RTOL`` (NaN
@@ -1036,7 +1094,11 @@ def device_profile(fn) -> dict:
     the summed device time of the CUDA work it ran, the idle share of the
     device over the wall time, and the five kernels with the most device
     time. ``device_ms`` is None when the trace holds no device time."""
-    prof = profile_calls(fn, 1)
+    return profile_summary(profile_calls(fn, 1))
+
+
+def profile_summary(prof: dict) -> dict:
+    """``device_profile``'s summary of one call's ``profile_calls`` result."""
     wall_ms = prof["wall_ms_per_call"]
     device_ms = prof["device_ms_per_call"] if prof["by_name"] else None
     top = sorted(prof["by_name"].items(), key=lambda kv: kv[1][0], reverse=True)[:5]
@@ -1048,13 +1110,14 @@ def device_profile(fn) -> dict:
     }
 
 
-def layer0_qkv(params, cfg, tokens):
-    """Layer 0's post-rope q, k, v at the prefill's shape, as ``mha`` makes them."""
+def layer0_qkv(params, cfg, tokens, layer: int = 0):
+    """A layer's post-rope q, k, v at the prefill's shape, as ``mha`` makes
+    them from the embedded tokens (layer 0's own input)."""
     import torch
 
     from repro_torch.models import layers as L
 
-    blk = params.blocks[0]
+    blk = params.blocks[layer]
     b, s = tokens.shape
     hd = cfg.resolved_head_dim
     with torch.no_grad():
@@ -1137,9 +1200,9 @@ def prefill_phase(model, params, check: FlashCheck, gen) -> tuple[dict, dict]:
         [str(Path(_build._nvcc()).parent / "cuobjdump"), "-res-usage", str(_build._lib_path("flash_attn"))],
         capture_output=True, text=True, check=True,
     ).stdout
-    regs = {k: r for k, r in res_usage(usage).items() if "wgmma" in k}
-    _check(len(regs) == 3 and all(r["stack_bytes"] == r["local_bytes"] == 0 for r in regs.values()),
-           f"flash_fwd_wgmma's resource usage (3 head dims, no stack or local memory): {regs}")
+    regs = {k: r for k, r in res_usage(usage).items() if "wgmma" in k or k == "flash_fwd_simt<256>"}
+    _check(len(regs) == 5 and all(r["stack_bytes"] == r["local_bytes"] == 0 for r in regs.values()),
+           f"flash_fwd_wgmma's resource usage (4 head dims) and flash_fwd_simt<256>'s: no stack or local memory: {regs}")
 
     weight_bytes = sum(p.numel() * p.element_size() for n, p in params.named_parameters() if not n.startswith("embed"))
     kv_bytes = 2 * cfg.n_layers * PREFILL_CACHE * cfg.n_kv_heads * cfg.resolved_head_dim * 2
@@ -1213,6 +1276,166 @@ def serve_phase(model, params, seed: int) -> dict:
         "hit_rate": s.hit_rate, "tokens_reused": s.tokens_reused,
         "space_savings": cluster.space_savings(), "flash_launches": flash_attention_cuda.launches,
     }
+
+
+def family_traffic(model, params, tokens, n_prefill: int, cache_len: int) -> dict:
+    """The sliding-window families' traffic: prefill ``n_prefill`` of
+    ``tokens`` (1, n) into ``cache_len``-slot caches, then decode the rest
+    one token at a time (teacher-forced), then prefill all of them afresh.
+    The flash kernel's counts are set to 0 just before the prefill and read
+    after it and after the decode; the fresh prefill is the check, outside
+    the counts. Returns seconds, counts, and the relative max error of the
+    last decode step's logits against the fresh prefill's last logits."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+
+    sync = torch.cuda.synchronize if model.device.type == "cuda" else (lambda: None)
+    sync()
+    flash_attention_cuda.launches = flash_attention_cuda.windowed_launches = 0
+    for kind in ops.launch_counts:
+        ops.launch_counts[kind] = 0
+    t = time.perf_counter()
+    logits, caches = model.prefill(params, {"tokens": tokens[:, :n_prefill]}, cache_len=cache_len)
+    sync()
+    prefill_s = time.perf_counter() - t
+    launches = {"prefill": flash_attention_cuda.launches, "prefill_windowed": flash_attention_cuda.windowed_launches}
+    _check(bool(logits.float().isfinite().all()), "prefill logits not finite")
+    t = time.perf_counter()
+    for pos in range(n_prefill, tokens.shape[1]):
+        logits, caches = model.decode_step(params, caches, tokens[:, pos : pos + 1], pos)
+    sync()
+    decode_s = time.perf_counter() - t
+    launches["decode"] = flash_attention_cuda.launches - launches["prefill"]
+    ref, _ = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+    a, b = logits[:, 0].float(), ref[:, 0].float()
+    err = float((a - b).abs().max() / (b.abs().max() + 1e-6))
+    return {"prefill_s": prefill_s, "decode_ms_per_token": decode_s / (tokens.shape[1] - n_prefill) * 1e3,
+            "flash_launches": launches, "decode_vs_prefill_rel_err": err, "caches": caches}
+
+
+# The sliding-window families (phase 8): arch, from src/repro/configs/; the
+# flash launches a prefill must make (one per attention layer) and how many
+# of them carry a window.
+FAMILIES = (("gemma3-12b", 48, 40), ("recurrentgemma-2b", 8, 8))
+# The last decode step's logits against a fresh prefill, relative max error:
+# bfloat16 at the reference's test_local_attention_ring_cache_exactness
+# limit; float32, where a decode and a prefill differ only in the order of
+# their sums, at the reference's float32 tolerance.
+DECODE_REL_LIMIT = {"bfloat16": 0.05, "float32": 2e-4}
+
+
+def family_phase(arch: str, want_launches: int, want_windowed: int, check: FlashCheck, gen) -> tuple[dict, dict]:
+    """Phase 8 for one model: full width, all layers, ``attn_impl="chunked"``,
+    bf16, random weights from ``gen``; ``family_traffic`` at the prefill
+    phase's size (8,192 tokens into 8,200-slot caches, 8 decode steps).
+    Then the flash kernel at the model's attention shapes (the first
+    attention layer's q, k, v of the embedded tokens), with and without
+    the window as the model's layers use it, bf16 and float32: held
+    against the plain version, timed beside it and beside
+    ``scaled_dot_product_attention``. Last, the same traffic on the model
+    in float32 (weights drawn afresh), whose decode must meet the prefill
+    within ``DECODE_REL_LIMIT["float32"]``. Returns the ``family`` line and
+    the kernel's entries for the ``kernels`` line; the caller checks that
+    the phase left nothing allocated."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention_cuda, flash_attention_plain
+    from repro_torch.models import build_model
+
+    _warm_cublas()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config(arch), attn_impl="chunked")
+    model = build_model(cfg)
+    t = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    # floors: the blocks' products (2 FLOP a parameter and token) and the
+    # attention's visible pairs over the bf16 peak; a decode step reads
+    # every weight once, the tied embedding included (it is the unembedding)
+    layer_params = sum(p.numel() for p in params.blocks.parameters()) + sum(p.numel() for p in params.tail.parameters())
+    hd = cfg.resolved_head_dim
+    attn_flop = cfg.n_groups * sum(
+        4 * cfg.n_heads * hd * attention_pairs(PREFILL_TOKENS, PREFILL_TOKENS, True, cfg.window if kind == "attn_local" else 0)
+        for kind in cfg.block_pattern if kind != "rglru")
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_CACHE), generator=gen, device=model.device)
+    torch.cuda.reset_peak_memory_stats()
+    traffic = family_traffic(model, params, tokens, PREFILL_TOKENS, PREFILL_CACHE)
+    peak = torch.cuda.max_memory_allocated()
+    launches = traffic["flash_launches"]
+    check_family_traffic(arch, traffic, want_launches, want_windowed, "bfloat16")
+    rings = [c for c in traffic.pop("caches")[0] if "pos_idx" in c]
+    _check(all(int(c["pos_idx"].max()) == PREFILL_CACHE - 1 for c in rings), f"{arch}: ring caches missed a decode step")
+    raw = profile_calls(lambda: model.prefill(params, {"tokens": tokens[:, :PREFILL_TOKENS]}, cache_len=PREFILL_CACHE), 1)
+    prof = profile_summary(raw)
+    flash_ms = sum(ms for name, (ms, _) in raw["by_name"].items() if "flash_fwd" in name)
+    del raw
+    torch.cuda.empty_cache()
+
+    layer = cfg.block_pattern.index("attn_local")
+    q, k, v = layer0_qkv(params, cfg, tokens[:, :PREFILL_TOKENS], layer)
+    entries = {}
+    for window in [cfg.window] + ([0] if "attn_global" in cfg.block_pattern else []):
+        shape = f"{arch} q {tuple(q.shape)} k/v {tuple(k.shape)}, causal, window {window}"
+        check(q, k, v, causal=True, window=window, what=f"flash at {shape}, bf16")
+        check(q.float(), k.float(), v.float(), causal=True, window=window, what=f"flash at {shape}, float32")
+        torch.cuda.synchronize()
+        ms = _timed(lambda: flash_attention_cuda(q, k, v, window=window), 5)
+        plain_ms = _timed(lambda: flash_attention_plain(q, k, v, window=window), 2)
+        library_ms, backend = library_attention_ms(q, k, v, window)
+        ops_ms, bytes_ms = flash_bound_ms(q, k, True, window)
+        entries[shape] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms, "library_call": f"scaled_dot_product_attention ({backend})"
+                                                      + (", boolean band mask" if window else ", is_causal"),
+            "tflops": ops_ms / ms * BF16_FLOP_PER_S * 1e-12,
+            "launches_per_prefill": launches["prefill_windowed"] if window
+            else launches["prefill"] - launches["prefill_windowed"],
+        }
+    del q, k, v
+    line = {
+        "model": f"{arch}, attn_impl chunked, {cfg.n_layers} layers, {cfg.param_dtype}, random weights",
+        "parameters": n_params, "init_s": init_s, "tokens": PREFILL_TOKENS, "cache_len": PREFILL_CACHE, "batch": 1,
+        "window": cfg.window, **traffic, "peak_memory_bytes": peak, "weight_bytes": weight_bytes,
+        "prefill_floor_s": (2 * layer_params * PREFILL_TOKENS + attn_flop) / BF16_FLOP_PER_S,
+        "decode_floor_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "profile_prefill": prof, "prefill_flash_device_ms": flash_ms,
+        "prefill_flash_share": None if not prof["device_ms"] else flash_ms / prof["device_ms"],
+    }
+    del model, params, rings, traffic
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = build_model(dataclasses.replace(cfg, param_dtype=torch.float32))
+    params = model.init(gen)
+    traffic = family_traffic(model, params, tokens, PREFILL_TOKENS, PREFILL_CACHE)
+    del traffic["caches"], model, params, tokens
+    check_family_traffic(arch, traffic, want_launches, want_windowed, "float32")
+    line["float32"] = traffic
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["left_allocated_bytes"] = torch.cuda.memory_allocated() - mem_before
+    return line, entries
+
+
+def check_family_traffic(arch: str, traffic: dict, want_launches: int, want_windowed: int, dtype: str) -> None:
+    """``family_traffic``'s counts and its decode-vs-prefill error, against
+    ``FAMILIES`` and ``DECODE_REL_LIMIT``."""
+    launches = traffic["flash_launches"]
+    _check(launches == {"prefill": want_launches, "prefill_windowed": want_windowed, "decode": 0},
+           f"{arch}, {dtype}: flash launches {launches}, want {want_launches} a prefill "
+           f"({want_windowed} windowed), 0 a decode")
+    _check(traffic["decode_vs_prefill_rel_err"] < DECODE_REL_LIMIT[dtype],
+           f"{arch}, {dtype}: decode after {DECODE_TOKENS} steps is {traffic['decode_vs_prefill_rel_err']} "
+           f"from a full prefill (limit {DECODE_REL_LIMIT[dtype]})")
 
 
 def main() -> int:
@@ -1290,6 +1513,22 @@ def main() -> int:
 
     # --------------------------------------------- 7. serving at full width
     print("serving " + json.dumps(serve_phase(model, params, args.seed)))
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------- 8. the sliding-window families at full width
+    flash_row["launches_by_path"] = {"qwen2.5-32b prefill": flash_row["launches"]}
+    flash_row["hd256"] = {}
+    for arch, want, want_windowed in FAMILIES:
+        line, entries = family_phase(arch, want, want_windowed, check, gen)
+        print("family " + json.dumps(line))
+        _check(line["left_allocated_bytes"] == 0,
+               f"the {arch} phase left {line['left_allocated_bytes']} B on the card")
+        flash_row["launches_by_path"][f"{arch} prefill"] = line["flash_launches"]["prefill"]
+        flash_row["hd256"].update(entries)
+    flash_row.update(mismatches=check.mismatches, cases=check.cases, max_abs_err=max(check.max_abs_err.values()),
+                     max_abs_err_by_dtype=check.max_abs_err, max_err_ratio=check.max_err_ratio)
     rows_out.append(flash_row)
     print(json.dumps({"kernels": rows_out}))
     smi = subprocess.run(

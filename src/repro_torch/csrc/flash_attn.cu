@@ -23,26 +23,31 @@
 // Sq and Skv are masked, not required to divide the tile.
 //  - bf16: flash_fwd_wgmma, warp-specialized in the shape of
 //    FlashAttention-3. A block owns 128 query rows of one (batch, head) and
-//    has three warpgroups. Warpgroup 0 is the producer: one thread loads Q
-//    once and then K/V tiles of 128 rows with TMA (cp.async.bulk.tensor)
-//    into a ring of kStages stages, each with a full and an empty mbarrier.
-//    Warpgroups 1 and 2 are consumers of 64 query rows each: S = Q K^T is
-//    wgmma m64n128k16 with Q and K read from shared memory through
-//    descriptors; O += P V is wgmma m64nHDk16 with P re-packed from the
-//    fp32 S accumulators into bf16 A-register fragments (P never touches
-//    shared memory) and V read in its natural (Skv, hd) layout as an
-//    MN-major B operand (the transpose bit). setmaxnreg moves registers
-//    from the producer to the consumers. Shared tiles are stored in panels
-//    64 elements wide with the 128-byte swizzle (hd 64 and 128; hd 32, whose
-//    rows are 64 bytes, takes the 64-byte swizzle); the TMA maps and the
-//    wgmma descriptors agree on it. Each (consumer, KV tile) pair is skipped,
-//    full (no mask) or an edge (masked in int32: the diagonal, the window
-//    edge, the ragged end, where TMA's zero rows must not count), and
-//    exp2f takes scale * log2(e) folded in. Query heads of one KV group are
-//    adjacent in the grid, so their K/V tiles are read from L2.
+//    has two consumer warpgroups and, up to hd 128, a producer warpgroup (at
+//    hd 256 consumer thread 0 loads: see Tiling). One thread loads Q once
+//    and then K/V tiles of BN rows with TMA
+//    (cp.async.bulk.tensor) into a ring of kStages stages, each with a full
+//    and an empty mbarrier. Each consumer owns 64 query rows: S = Q K^T is
+//    wgmma m64nBNk16 with Q and K read from shared memory through
+//    descriptors; O += P V is wgmma m64nHDk16 (two n128 halves at hd 256)
+//    with P re-packed from the fp32 S accumulators into bf16 A-register
+//    fragments (P never touches shared memory) and V read in its natural
+//    (Skv, hd) layout as an MN-major B operand (the transpose bit). Shared
+//    tiles are stored in panels 64 elements wide with the 128-byte swizzle
+//    (hd 64 and up; hd 32, whose rows are 64 bytes, takes the 64-byte
+//    swizzle); the TMA maps and the wgmma descriptors agree on it. Each
+//    (consumer, KV tile) pair is skipped, full (no mask) or an edge (masked
+//    in int32: the diagonal, the window edge, the ragged end, where TMA's
+//    zero rows must not count), and exp2f takes scale * log2(e) folded in.
+//    Query heads of one KV group are adjacent in the grid, so their K/V
+//    tiles are read from L2. BN is 128 up to hd 128 and 64 at hd 256
+//    (Gemma3, RecurrentGemma): there 128 rows would need 64 KB (Q) + 256 KB
+//    (the K/V ring) of shared memory and 128 (O) + 64 (S) + 32 (P) registers
+//    a consumer thread; 64 rows take 1 + 64 + 128 KB and 128 + 32 + 16.
 //  - fp32: flash_fwd_simt, scalar fp32 FMA (the tensor cores' TF32 would
-//    not hold the fp32 tolerance). 4 threads per query row, each owning a
-//    quarter of the head dim; partial dot products meet by warp shuffles.
+//    not hold the fp32 tolerance). 4 threads per query row (8 at hd 256),
+//    each owning a slice of 32 or fewer head-dim elements; partial dot
+//    products meet by warp shuffles.
 
 #include <cstdint>
 #include <cuda.h>
@@ -52,8 +57,6 @@
 
 namespace {
 
-constexpr int kBM = 64;  // query rows per block (fp32)
-constexpr int kBN = 64;  // key/value rows per streamed tile (fp32)
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
@@ -68,13 +71,27 @@ struct Args {
   int64_t window;
 };
 
-// The half-open range of kv tiles a query tile [q0, q0 + BM) can see.
-__device__ __forceinline__ void tile_range(const Args& a, int64_t q0, int64_t* t_lo, int64_t* t_hi) {
-  const int64_t q_last = min(q0 + kBM, a.Sq) - 1;
+// The fp32 kernel's geometry at head dim HD: kParts threads per query row
+// (so a thread holds at most 32 of q's and of the output's elements), kRows
+// query rows per block of 256 threads, K/V tiles of kBN rows (32 at hd 256,
+// where a thread's 64 scores of a 64-row tile would not fit in registers
+// beside its 64 elements of q and of the output).
+template <int HD>
+struct Simt {
+  static constexpr int kParts = HD > 128 ? 8 : 4;
+  static constexpr int kRows = 256 / kParts;
+  static constexpr int kBN = HD > 128 ? 32 : 64;
+};
+
+// The half-open range of kv tiles of bn rows that a query tile [q0, q0 +
+// rows) can see.
+__device__ __forceinline__ void tile_range(const Args& a, int64_t q0, int64_t rows, int64_t bn, int64_t* t_lo,
+                                           int64_t* t_hi) {
+  const int64_t q_last = min(q0 + rows, a.Sq) - 1;
   const int64_t kv_end = a.causal ? min(a.Skv, q_last + 1) : a.Skv;
   const int64_t kv_begin = a.window > 0 ? max(int64_t(0), q0 - a.window + 1) : 0;
-  *t_lo = kv_begin / kBN;
-  *t_hi = (kv_end + kBN - 1) / kBN;
+  *t_lo = kv_begin / bn;
+  *t_hi = (kv_end + bn - 1) / bn;
 }
 
 __device__ __forceinline__ bool visible(const Args& a, int64_t qpos, int64_t kpos) {
@@ -88,14 +105,14 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 // ------------------------------------------------------------ fp32: SIMT --
 template <typename T, int HD>
 __global__ void __launch_bounds__(256) flash_fwd_simt(Args a) {
-  constexpr int kThreads = 256, kParts = 4, kDpt = HD / kParts;
+  constexpr int kThreads = 256, kParts = Simt<HD>::kParts, kDpt = HD / kParts, kBN = Simt<HD>::kBN;
   extern __shared__ float smem_f[];
   float* Ks = smem_f;              // [kBN][HD]
   float* Vs = smem_f + kBN * HD;   // [kBN][HD]
-  const int tid = threadIdx.x, r = tid >> 2, part = tid & 3;
+  const int tid = threadIdx.x, r = tid / kParts, part = tid % kParts;
   const int64_t qt = int64_t(gridDim.x) - 1 - blockIdx.x;  // heavy tiles first
   const int64_t b = blockIdx.y / a.H, h = blockIdx.y % a.H, kvh = h / (a.H / a.KH);
-  const int64_t q0 = qt * kBM, qpos = q0 + r;
+  const int64_t q0 = qt * Simt<HD>::kRows, qpos = q0 + r;
   const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
   const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
@@ -108,7 +125,7 @@ __global__ void __launch_bounds__(256) flash_fwd_simt(Args a) {
   }
   float m = -INFINITY, l = 0.f;
   int64_t t_lo, t_hi;
-  tile_range(a, q0, &t_lo, &t_hi);
+  tile_range(a, q0, Simt<HD>::kRows, kBN, &t_lo, &t_hi);
   for (int64_t t = t_lo; t < t_hi; ++t) {
     const int64_t kv0 = t * kBN;
     __syncthreads();
@@ -135,8 +152,8 @@ __global__ void __launch_bounds__(256) flash_fwd_simt(Args a) {
     float mx = m;
 #pragma unroll
     for (int c = 0; c < kBN; ++c) {
-      s[c] += __shfl_xor_sync(kFull, s[c], 1);
-      s[c] += __shfl_xor_sync(kFull, s[c], 2);
+#pragma unroll
+      for (int lane_mask = 1; lane_mask < kParts; lane_mask <<= 1) s[c] += __shfl_xor_sync(kFull, s[c], lane_mask);
       s[c] = visible(a, qpos, kv0 + c) ? s[c] : -INFINITY;
       mx = fmaxf(mx, s[c]);
     }
@@ -169,22 +186,32 @@ __global__ void __launch_bounds__(256) flash_fwd_simt(Args a) {
 
 // ---------------------------------------- bf16: wgmma + TMA, warp-specialized --
 constexpr int kBMw = 128;        // query rows per block: two consumer warpgroups x 64
-constexpr int kBNw = 128;        // key/value rows per ring stage
 constexpr int kStages = 2;       // K/V ring depth
-constexpr int kThreadsW = 384;   // warpgroup 0 produces, 1 and 2 consume
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 x 40 + 256 x 232 = 384 x 168
 enum { kSkip, kFullTile, kEdge };
 
-// Shared-memory geometry at head dim HD. A tile of R rows is kNP panels of
-// R rows x kSW bytes, each panel swizzled over its kSW-byte rows.
+// Block and shared-memory geometry at head dim HD. A tile of R rows is kNP
+// panels of R rows x kSW bytes, each panel swizzled over its kSW-byte rows.
+// Up to hd 128 a block is three warpgroups: warpgroup 0 produces and hands
+// registers to the consumers (setmaxnreg). ptxas compiles every part of the
+// kernel within the launch's share, 168 registers a thread for 12 warps (3
+// warps on each SM sub-partition's 16,384 registers), whatever setmaxnreg
+// says; at hd 256 a consumer holds 128 (O) + 32 (S) + 16 (P) registers and
+// spilled there. So at hd 256 the block is the two consumer warpgroups
+// alone (8 warps: 255 registers a thread), and consumer thread 0 issues
+// the loads: the first kStages tiles up front, then each next tile into a
+// stage as soon as both consumers have released it.
 template <int HD>
 struct Tiling {
+  static constexpr bool kSelfLoad = HD > 128;                // no producer warpgroup
+  static constexpr int kThreads = kSelfLoad ? 256 : 384;
+  static constexpr int kBN = HD <= 128 ? 128 : 64;           // key/value rows per ring stage
   static constexpr int kPW = HD < 64 ? HD : 64;              // elements per panel row
   static constexpr int kSW = kPW * 2;                        // bytes per panel row = the swizzle span
   static constexpr int kNP = HD / kPW;                       // panels across the head dim
   static constexpr uint64_t kLayout = kSW == 128 ? 1 : 2;   // wgmma descriptor: 128B / 64B swizzle
   static constexpr int kQBytes = kBMw * HD * 2;
-  static constexpr int kTileBytes = kBNw * HD * 2;           // one K or one V tile
+  static constexpr int kTileBytes = kBN * HD * 2;            // one K or one V tile
   static constexpr int kSmem = 1024 + kQBytes + kStages * 2 * kTileBytes;  // + 1024 to align
 };
 
@@ -283,6 +310,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64, fp32) = (scale_d ? d : 0) + A (64 x 16) * B (16 x 64); A and B in shared
+// memory behind descriptors, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 32, fp32) += A (64 x 16, bf16 in registers) * B (16 x 32); B in shared
 // memory behind a descriptor, MN-major (the transpose bit).
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
@@ -348,19 +393,27 @@ __device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
 }
 
 // O += P V for one 64-row consumer: the P fragments pa against the V tile
-// at v_base, 16 kv rows per wgmma.
+// at v_base, 16 kv rows per wgmma. At hd 256 each k-step is two n128
+// products: columns 128..255 of O are its elements 64..127 (element e sits
+// at column 8 * (e / 4) + ...), so each half is a contiguous half of o.
 template <int HD>
-__device__ __forceinline__ void pv_product(float (&o)[HD / 2], uint32_t (&pa)[kBNw / 16][4], uint32_t v_base) {
+__device__ __forceinline__ void pv_product(float (&o)[HD / 2], uint32_t (&pa)[Tiling<HD>::kBN / 16][4],
+                                           uint32_t v_base) {
   using T = Tiling<HD>;
   fence_regs(o);
   fence_regs(pa);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBNw / 16; ++kk) {
+  for (int kk = 0; kk < T::kBN / 16; ++kk) {
     // MN-major B: 8-row groups along kv at 8 * kSW bytes (SBO), panels of
-    // 64 head-dim columns at kBNw * kSW bytes (LBO).
-    const uint64_t db = smem_desc(v_base + kk * 16 * T::kSW, kBNw * T::kSW, 8 * T::kSW, T::kLayout);
-    if constexpr (HD == 128) wgmma_rs_n128(o, pa[kk], db);
+    // 64 head-dim columns at kBN * kSW bytes (LBO).
+    const uint64_t db = smem_desc(v_base + kk * 16 * T::kSW, T::kBN * T::kSW, 8 * T::kSW, T::kLayout);
+    if constexpr (HD == 256) {
+      const uint64_t db_hi =
+          smem_desc(v_base + 2 * T::kBN * T::kSW + kk * 16 * T::kSW, T::kBN * T::kSW, 8 * T::kSW, T::kLayout);
+      wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), pa[kk], db);
+      wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), pa[kk], db_hi);
+    } else if constexpr (HD == 128) wgmma_rs_n128(o, pa[kk], db);
     else if constexpr (HD == 64) wgmma_rs_n64(o, pa[kk], db);
     else wgmma_rs_n32(o, pa[kk], db);
   }
@@ -380,15 +433,17 @@ __device__ __forceinline__ void tile_step(float (&o)[HD / 2], float (&m)[2], flo
                                           uint32_t k_base, uint32_t v_base, int kv0, int qrow0, int skv,
                                           int causal, int win, float c) {
   using T = Tiling<HD>;
-  float s[kBNw / 2];
+  float s[T::kBN / 2];
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     // K-major A and B: 8-row groups at 8 * kSW bytes (SBO); a k-step moves
     // 32 bytes along a swizzled row, a panel at every 64 elements.
     const int panel = kk * 16 / T::kPW, off = (kk * 16 % T::kPW) * 2;
-    wgmma_ss_n128(s, smem_desc(q_base + panel * kBMw * T::kSW + off, 0, 8 * T::kSW, T::kLayout),
-                  smem_desc(k_base + panel * kBNw * T::kSW + off, 0, 8 * T::kSW, T::kLayout), kk > 0);
+    const uint64_t da = smem_desc(q_base + panel * kBMw * T::kSW + off, 0, 8 * T::kSW, T::kLayout);
+    const uint64_t db = smem_desc(k_base + panel * T::kBN * T::kSW + off, 0, 8 * T::kSW, T::kLayout);
+    if constexpr (T::kBN == 128) wgmma_ss_n128(s, da, db, kk > 0);
+    else wgmma_ss_n64(s, da, db, kk > 0);
   }
   wgmma_commit();
   wgmma_wait();
@@ -397,7 +452,7 @@ __device__ __forceinline__ void tile_step(float (&o)[HD / 2], float (&m)[2], flo
   const int col = 2 * (threadIdx.x & 3);
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int e = 0; e < kBNw / 2; ++e) {
+  for (int e = 0; e < T::kBN / 2; ++e) {
     if (kMask) {
       const int kpos = kv0 + 8 * (e >> 2) + col + (e & 1);
       const int qpos = qrow0 + 8 * ((e >> 1) & 1);
@@ -424,9 +479,9 @@ __device__ __forceinline__ void tile_step(float (&o)[HD / 2], float (&m)[2], flo
   }
   // P = exp2(s * c - m * c), re-packed as the A fragments of P V: elements
   // 8kk .. 8kk + 7 of S are exactly the 64 x 16 A operand of k-step kk.
-  uint32_t pa[kBNw / 16][4];
+  uint32_t pa[T::kBN / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < kBNw / 16; ++kk) {
+  for (int kk = 0; kk < T::kBN / 16; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int e = 8 * kk + 2 * i, row = i & 1;
@@ -439,30 +494,39 @@ __device__ __forceinline__ void tile_step(float (&o)[HD / 2], float (&m)[2], flo
 }
 
 // Whether a consumer with query rows [r_lo, r_hi] needs KV tile [kv0,
-// kv0 + kBNw): kSkip (nothing visible), kFullTile (everything visible) or
+// kv0 + BN): kSkip (nothing visible), kFullTile (everything visible) or
 // kEdge (masked).
+template <int BN>
 __device__ __forceinline__ int tile_kind(int r_lo, int r_hi, int kv0, int skv, int causal, int win) {
-  if (r_lo > r_hi || (causal && kv0 > r_hi) || (win > 0 && kv0 + kBNw - 1 <= r_lo - win)) return kSkip;
-  const bool full = kv0 + kBNw <= skv && (!causal || kv0 + kBNw - 1 <= r_lo) && (win <= 0 || kv0 > r_hi - win);
+  if (r_lo > r_hi || (causal && kv0 > r_hi) || (win > 0 && kv0 + BN - 1 <= r_lo - win)) return kSkip;
+  const bool full = kv0 + BN <= skv && (!causal || kv0 + BN - 1 <= r_lo) && (win <= 0 || kv0 > r_hi - win);
   return full ? kFullTile : kEdge;
 }
 
-// The KV tiles that the block of query rows [q0, q0 + kBMw) walks, in
-// order. The producer and both consumers walk them through this one
-// function, so the ring's stages and phases stay in step.
-template <class Visit>
-__device__ __forceinline__ void walk_kv_tiles(const Args& a, int q0, Visit&& visit) {
+// The KV tiles of BN rows, [t_lo, t_hi), that the block of query rows
+// [q0, q0 + kBMw) needs.
+template <int BN>
+__device__ __forceinline__ void kv_tile_range(const Args& a, int q0, int* t_lo, int* t_hi) {
   const int q_last = min(q0 + kBMw, int(a.Sq)) - 1;
   const int kv_end = a.causal ? min(int(a.Skv), q_last + 1) : int(a.Skv);
   const int kv_begin = a.window > 0 ? int(max(int64_t(0), q0 - a.window + 1)) : 0;
-  const int t_lo = kv_begin / kBNw, t_hi = (kv_end + kBNw - 1) / kBNw;
+  *t_lo = kv_begin / BN;
+  *t_hi = (kv_end + BN - 1) / BN;
+}
+
+// Those tiles, in order. The producer and both consumers walk them through
+// this one function, so the ring's stages and phases stay in step.
+template <int BN, class Visit>
+__device__ __forceinline__ void walk_kv_tiles(const Args& a, int q0, Visit&& visit) {
+  int t_lo, t_hi;
+  kv_tile_range<BN>(a, q0, &t_lo, &t_hi);
   for (int t = t_lo; t < t_hi; ++t) {
     visit(t);
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreadsW, 1)
+__global__ void __launch_bounds__(Tiling<HD>::kThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, Args a) {
   using T = Tiling<HD>;
@@ -477,6 +541,18 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   const int b = blockIdx.x / int(a.H), h = blockIdx.x % int(a.H), kvh = h / int(a.H / a.KH);
   const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * kBMw;  // heavy tiles first
   const int wg = threadIdx.x / 128;
+  int t_lo, t_hi;
+  kv_tile_range<T::kBN>(a, q0, &t_lo, &t_hi);
+  // TMA of K/V tile t into ring stage `stage`, completing its full barrier.
+  auto load_tile = [&](int t, int stage) {
+    mbar_expect_tx(bar_full(stage), 2 * T::kTileBytes);
+    const uint32_t k_dst = smem_kv + stage * 2 * T::kTileBytes;
+    for (int p = 0; p < T::kNP; ++p) {
+      tma_load_4d(k_dst + p * T::kBN * T::kSW, &tk, bar_full(stage), p * T::kPW, kvh, t * T::kBN, b);
+      tma_load_4d(k_dst + T::kTileBytes + p * T::kBN * T::kSW, &tv, bar_full(stage), p * T::kPW, kvh,
+                  t * T::kBN, b);
+    }
+  };
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -486,24 +562,23 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if (threadIdx.x == 0) {  // the producer's thread, or the loading consumer's
+    mbar_expect_tx(bar_q, T::kQBytes);
+    for (int p = 0; p < T::kNP; ++p) tma_load_4d(smem_q + p * kBMw * T::kSW, &tq, bar_q, p * T::kPW, h, q0, b);
+    if constexpr (T::kSelfLoad) {
+      for (int i = 0; i < kStages && t_lo + i < t_hi; ++i) load_tile(t_lo + i, i);
+    }
+  }
 
-  if (wg == 0) {
+  if (!T::kSelfLoad && wg == 0) {
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q, T::kQBytes);
-      for (int p = 0; p < T::kNP; ++p) tma_load_4d(smem_q + p * kBMw * T::kSW, &tq, bar_q, p * T::kPW, h, q0, b);
       int stage = 0;
       uint32_t phase = 0;
-      walk_kv_tiles(a, q0, [&](int t) {
+      walk_kv_tiles<T::kBN>(a, q0, [&](int t) {
         mbar_wait(bar_empty(stage), phase ^ 1);
-        mbar_expect_tx(bar_full(stage), 2 * T::kTileBytes);
-        const uint32_t k_dst = smem_kv + stage * 2 * T::kTileBytes;
-        for (int p = 0; p < T::kNP; ++p) {
-          tma_load_4d(k_dst + p * kBNw * T::kSW, &tk, bar_full(stage), p * T::kPW, kvh, t * kBNw, b);
-          tma_load_4d(k_dst + T::kTileBytes + p * kBNw * T::kSW, &tv, bar_full(stage), p * T::kPW, kvh,
-                      t * kBNw, b);
-        }
+        load_tile(t, stage);
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
@@ -512,8 +587,8 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     }
   } else {
     // ----------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int c = wg - 1, lane = threadIdx.x & 31;
+    if constexpr (!T::kSelfLoad) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = T::kSelfLoad ? wg : wg - 1, lane = threadIdx.x & 31;
     const int sq = int(a.Sq), skv = int(a.Skv), causal = a.causal;
     const int win = a.window > 0 ? int(min(a.window, a.Sq + a.Skv)) : 0;
     const float scale_log2 = a.scale * 1.4426950408889634f;
@@ -526,11 +601,11 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     mbar_wait(bar_q, 0);
     int stage = 0;
     uint32_t phase = 0;
-    walk_kv_tiles(a, q0, [&](int t) {
+    walk_kv_tiles<T::kBN>(a, q0, [&](int t) {
       // Wait for the tile even when skipping it: the empty arrival below
       // must not count toward the stage's previous phase.
       mbar_wait(bar_full(stage), phase);
-      const int kv0 = t * kBNw, kind = tile_kind(r_lo, r_hi, kv0, skv, causal, win);
+      const int kv0 = t * T::kBN, kind = tile_kind<T::kBN>(r_lo, r_hi, kv0, skv, causal, win);
       const uint32_t k_base = smem_kv + stage * 2 * T::kTileBytes, v_base = k_base + T::kTileBytes;
       if (kind == kFullTile) {
         tile_step<HD, false>(o, m, l, q_base, k_base, v_base, kv0, qrow0, skv, causal, win, scale_log2);
@@ -539,6 +614,13 @@ __global__ void __launch_bounds__(kThreadsW, 1)
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_empty(stage));
+      if constexpr (T::kSelfLoad) {
+        if (threadIdx.x == 0 && t + kStages < t_hi) {
+          mbar_wait(bar_empty(stage), phase);  // both consumers are done with this stage
+          load_tile(t + kStages, stage);
+        }
+        __syncwarp();
+      }
       if (++stage == kStages) {
         stage = 0;
         phase ^= 1;
@@ -610,14 +692,14 @@ cudaError_t launch_wgmma(cudaStream_t s, const Args& a) {
   using T = Tiling<HD>;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, a.q, HD, a.H, a.Sq, a.B, a.q_sh, a.q_ss, a.q_sb, T::kPW, kBMw) ||
-      !tensor_map(&tk, a.k, HD, a.KH, a.Skv, a.B, a.k_sh, a.k_ss, a.k_sb, T::kPW, kBNw) ||
-      !tensor_map(&tv, a.v, HD, a.KH, a.Skv, a.B, a.v_sh, a.v_ss, a.v_sb, T::kPW, kBNw)) {
+      !tensor_map(&tk, a.k, HD, a.KH, a.Skv, a.B, a.k_sh, a.k_ss, a.k_sb, T::kPW, T::kBN) ||
+      !tensor_map(&tv, a.v, HD, a.KH, a.Skv, a.B, a.v_sh, a.v_ss, a.v_sb, T::kPW, T::kBN)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(a.B * a.H), static_cast<unsigned>((a.Sq + kBMw - 1) / kBMw));
-  flash_fwd_wgmma<HD><<<grid, kThreadsW, T::kSmem, s>>>(tq, tk, tv, a);
+  flash_fwd_wgmma<HD><<<grid, T::kThreads, T::kSmem, s>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
@@ -632,9 +714,11 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s
 }
 
 template <int HD>
-cudaError_t dispatch(int dtype, dim3 grid, cudaStream_t s, const Args& a) {
+cudaError_t dispatch(int dtype, cudaStream_t s, const Args& a) {
   if (dtype == 1) return launch_wgmma<HD>(s, a);
-  return launch(flash_fwd_simt<float, HD>, grid, 256, size_t(2) * kBN * HD * sizeof(float), s, a);
+  const dim3 grid(static_cast<unsigned>((a.Sq + Simt<HD>::kRows - 1) / Simt<HD>::kRows),
+                  static_cast<unsigned>(a.B * a.H));
+  return launch(flash_fwd_simt<float, HD>, grid, 256, size_t(2) * Simt<HD>::kBN * HD * sizeof(float), s, a);
 }
 
 }  // namespace
@@ -642,7 +726,7 @@ cudaError_t dispatch(int dtype, dim3 grid, cudaStream_t s, const Args& a) {
 // q (B, Sq, H, hd), k and v (B, Skv, K, hd) on the device, last dim
 // contiguous, element strides in `strides` (host array: q's b, s, h, then
 // k's, then v's). o: contiguous (B, Sq, H, hd) of q's dtype. dtype 0 is
-// float32, 1 is bfloat16; hd is 32, 64 or 128. bfloat16 goes through TMA:
+// float32, 1 is bfloat16; hd is 32, 64, 128 or 256. bfloat16 goes through TMA:
 // q, k, v 16-byte aligned and every stride of a dim longer than 1 a
 // multiple of 8 elements. Launches on `stream`; returns cudaGetLastError()
 // as an int (cudaErrorInvalidValue, 1, for an unsupported dtype, head dim
@@ -654,13 +738,13 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
   Args a{q, k, v, o, B, Sq, Skv, H, KH,
          strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
          strides[6], strides[7], strides[8], scale, causal, window};
-  const dim3 grid(static_cast<unsigned>((Sq + kBM - 1) / kBM), static_cast<unsigned>(B * H));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 32: return static_cast<int>(dispatch<32>(dtype, grid, s, a));
-    case 64: return static_cast<int>(dispatch<64>(dtype, grid, s, a));
-    case 128: return static_cast<int>(dispatch<128>(dtype, grid, s, a));
+    case 32: return static_cast<int>(dispatch<32>(dtype, s, a));
+    case 64: return static_cast<int>(dispatch<64>(dtype, s, a));
+    case 128: return static_cast<int>(dispatch<128>(dtype, s, a));
+    case 256: return static_cast<int>(dispatch<256>(dtype, s, a));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 _BM_BF16 = 128  # query rows per block of the bf16 kernel
@@ -64,7 +64,7 @@ def flash_attention_cuda(
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
     ``flash_attention_plain``. The kernel takes float32 or bfloat16 (all
-    three of one dtype), head dims 32, 64 and 128, H a multiple of K, any
+    three of one dtype), head dims 32, 64, 128 and 256, H a multiple of K, any
     Sq, Skv >= 1, and any strides whose last one is 1 (no copy is made).
     bfloat16 is loaded by TMA, which needs q, k and v to start on a 16-byte
     boundary and every stride of a dim longer than 1 to be a multiple of 16
@@ -114,7 +114,10 @@ def flash_attention_cuda(
         )
     _build.check(err, "flash_attn_launch")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.windowed_launches += window > 0
     return out
 
 
+# Launches of the kernel; ``windowed_launches`` counts those with a window.
 flash_attention_cuda.launches = 0
+flash_attention_cuda.windowed_launches = 0

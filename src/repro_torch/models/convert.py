@@ -26,7 +26,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.transformer import Block, DecoderLM, check_kind
+
+# The RG-LRU mixer's array leaves, between its two dense projections.
+_RGLRU_ARRAYS = ("conv_w", "conv_b", "w_r", "b_r", "w_i", "b_i", "lam")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -51,14 +55,19 @@ def _dense(d: dict, device) -> L.Dense:
 
 
 def _block(d: dict, device) -> Block:
-    a = d["attn"]
-    attn = L.Attention(*(_dense(a[n], device) for n in ("wq", "wk", "wv", "wo")))
+    attn = mixer = None
+    if "attn" in d:
+        attn = L.Attention(*(_dense(d["attn"][n], device) for n in ("wq", "wk", "wv", "wo")))
+    if "mixer" in d:
+        m = d["mixer"]
+        mixer = SSM.RGLRU(_dense(m["in_proj"], device), *(_tensor(m[n], device) for n in _RGLRU_ARRAYS),
+                          _dense(m["out_proj"], device))
     norm1 = L.RMSNorm(_tensor(d["norm1"]["scale"], device))
     if "ffn" not in d:
-        return Block(norm1, attn)
+        return Block(norm1, attn, mixer=mixer)
     f = d["ffn"]
     return Block(norm1, attn, L.RMSNorm(_tensor(d["norm2"]["scale"], device)),
-                 L.FFN(*(_dense(f[n], device) for n in ("gate", "up", "down"))))
+                 L.FFN(*(_dense(f[n], device) for n in ("gate", "up", "down"))), mixer=mixer)
 
 
 def _index(tree, g: int):
@@ -98,11 +107,13 @@ def _dense_tree(d: L.Dense) -> dict:
 
 
 def _block_tree(b: Block) -> dict:
-    a = b.attn
-    out = {
-        "norm1": {"scale": _array(b.norm1.scale)},
-        "attn": {n: _dense_tree(getattr(a, n)) for n in ("wq", "wk", "wv", "wo")},
-    }
+    out = {"norm1": {"scale": _array(b.norm1.scale)}}
+    if b.attn is not None:
+        out["attn"] = {n: _dense_tree(getattr(b.attn, n)) for n in ("wq", "wk", "wv", "wo")}
+    if b.mixer is not None:
+        m = b.mixer
+        out["mixer"] = {"in_proj": _dense_tree(m.in_proj), "out_proj": _dense_tree(m.out_proj),
+                        **{n: _array(getattr(m, n)) for n in _RGLRU_ARRAYS}}
     if b.ffn is not None:
         out["norm2"] = {"scale": _array(b.norm2.scale)}
         out["ffn"] = {n: _dense_tree(getattr(b.ffn, n)) for n in ("gate", "up", "down")}

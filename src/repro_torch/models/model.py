@@ -11,7 +11,10 @@ exposes the functions the train loop and the server call:
     cache_specs(shape)                      -> TensorSpec tree
 
 ``loss_fn`` runs with autograd; ``prefill`` and ``decode_step`` run
-without it. Encoder-decoder models raise (ROADMAP A4c).
+without it. The decoder's block kinds ``attn_global``, ``attn_local``
+(Gemma3, RecurrentGemma's attention: ring-buffer caches) and ``rglru``
+(RecurrentGemma's recurrence) are ported; ``mla`` (ROADMAP A4b), ``moe``,
+``mamba2`` and encoder-decoder models (A4c) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

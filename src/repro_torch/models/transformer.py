@@ -1,8 +1,11 @@
-"""Decoder-LM assembly for dense decoders: pattern-grouped blocks.
+"""Decoder-LM assembly: pattern-grouped blocks.
 
-A port of the JAX package's ``models/transformer.py`` for the block kind
-this slice carries, ``attn_global`` (global causal attention plus an FFN).
-The other kinds raise ``NotImplementedError`` naming their ROADMAP item.
+A port of the JAX package's ``models/transformer.py`` for the block kinds
+``attn_global`` (global causal attention), ``attn_local`` (sliding-window
+attention with a ring-buffer KV cache of exactly ``window`` slots: Gemma3,
+RecurrentGemma) and ``rglru`` (the RG-LRU recurrence, ``models/ssm.py``:
+RecurrentGemma), each with an FFN when ``d_ff``. The other kinds raise
+``NotImplementedError`` naming their ROADMAP item.
 
 The JAX package stacks the parameters of all groups of the repeating
 ``block_pattern`` on a leading axis and scans over them; here the blocks are
@@ -16,6 +19,7 @@ it and stores those bytes.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -25,14 +29,14 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
+_PORTED = ("attn_global", "attn_local", "rglru")
 # Block kinds of the JAX package that later slices port (ROADMAP queue A).
 _NOT_PORTED = {
-    "attn_local": "sliding-window attention with its ring cache, ROADMAP A4a",
     "mla": "multi-head latent attention, ROADMAP A4b",
     "moe": "mixture of experts, ROADMAP A4c",
-    "mamba2": "the Mamba-2 SSM, ROADMAP A4c",
-    "rglru": "the RG-LRU recurrence, ROADMAP A4c",
+    "mamba2": "the Mamba-2 SSM (its SSD chunked scan), ROADMAP A4c",
 }
 
 
@@ -55,7 +59,7 @@ def zeros_from_specs(specs, device):
 
 
 def check_kind(kind: str) -> None:
-    if kind == "attn_global":
+    if kind in _PORTED:
         return
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
@@ -78,14 +82,24 @@ def _attn_spec(cfg: ModelConfig, local: bool) -> L.AttnSpec:
     )
 
 
-class Block(nn.Module):
-    """One ``attn_global`` block: ``norm1``, ``attn``, and with ``d_ff`` an
-    FFN behind ``norm2``."""
+def _rglru_spec(cfg: ModelConfig) -> SSM.RGLRUSpec:
+    return SSM.RGLRUSpec(
+        d_model=cfg.d_model,
+        width=cfg.rglru_width,
+        n_blocks=cfg.rglru_blocks,
+        d_conv=cfg.ssm_conv,
+    )
 
-    def __init__(self, norm1: L.RMSNorm, attn: L.Attention,
-                 norm2: L.RMSNorm | None = None, ffn: L.FFN | None = None):
+
+class Block(nn.Module):
+    """One block: ``norm1``, then ``attn`` (the attention kinds) or
+    ``mixer`` (``rglru``), and with ``d_ff`` an FFN behind ``norm2``."""
+
+    def __init__(self, norm1: L.RMSNorm, attn: L.Attention | None,
+                 norm2: L.RMSNorm | None = None, ffn: L.FFN | None = None,
+                 mixer: SSM.RGLRU | None = None):
         super().__init__()
-        self.norm1, self.attn, self.norm2, self.ffn = norm1, attn, norm2, ffn
+        self.norm1, self.attn, self.mixer, self.norm2, self.ffn = norm1, attn, mixer, norm2, ffn
 
 
 class DecoderLM(nn.Module):
@@ -106,11 +120,15 @@ def init_block(gen, cfg: ModelConfig, kind: str, device=None) -> Block:
     check_kind(kind)
     dt = cfg.param_dtype
     norm1 = L.init_rms_norm(cfg.d_model, dt, device)
-    attn = L.init_attention(gen, _attn_spec(cfg, False), dt, device)
+    attn = mixer = None
+    if kind == "rglru":
+        mixer = SSM.init_rglru(gen, _rglru_spec(cfg), dt, device)
+    else:
+        attn = L.init_attention(gen, _attn_spec(cfg, kind == "attn_local"), dt, device)
     if not cfg.d_ff:
-        return Block(norm1, attn)
+        return Block(norm1, attn, mixer=mixer)
     return Block(norm1, attn, L.init_rms_norm(cfg.d_model, dt, device),
-                 L.init_ffn(gen, cfg.d_model, cfg.d_ff, dt, cfg.act, device))
+                 L.init_ffn(gen, cfg.d_model, cfg.d_ff, dt, cfg.act, device), mixer=mixer)
 
 
 # ------------------------------------------------------ full-seq block fwd --
@@ -130,17 +148,48 @@ def block_fwd(p: Block, cfg: ModelConfig, kind: str, x, positions, want_cache: b
     check_kind(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rms_norm(p.norm1, x, cfg.norm_eps)
-    spec = _attn_spec(cfg, False)
     cache = None
-    if want_cache:
-        y, (k, v) = L.mha(p.attn, spec, h, positions, return_kv=True)
-        cache = {"k": _pad_seq(k, smax), "v": _pad_seq(v, smax)}
+    if kind == "rglru":
+        if want_cache:
+            y, (state, conv) = SSM.rglru_prefill(p.mixer, _rglru_spec(cfg), h, True)
+            cache = {"state": state, "conv": conv}
+        else:
+            y = SSM.rglru_prefill(p.mixer, _rglru_spec(cfg), h)
     else:
-        y = L.mha(p.attn, spec, h, positions)
+        spec = _attn_spec(cfg, kind == "attn_local")
+        if want_cache:
+            y, (k, v) = L.mha(p.attn, spec, h, positions, return_kv=True)
+            cache = _ring_cache_from_prefill(cfg, k, v) if kind == "attn_local" \
+                else {"k": _pad_seq(k, smax), "v": _pad_seq(v, smax)}
+        else:
+            y = L.mha(p.attn, spec, h, positions)
     x = x + y
     if p.ffn is not None:
         x = x + L.ffn(p.ffn, L.rms_norm(p.norm2, x, cfg.norm_eps), cfg.act)
     return x, cache, aux
+
+
+def _ring_cache_from_prefill(cfg: ModelConfig, k, v) -> dict[str, torch.Tensor]:
+    """Convert full prefill K/V into a window-sized ring buffer: position t
+    sits in slot t % window, ``pos_idx`` holds each slot's position (-1:
+    empty). The ring keeps the prefill's k/v dtype, as in the reference,
+    also under ``kv_cache_quant``."""
+    w = cfg.window
+    b, sl, kh, hd = k.shape
+    if sl >= w:
+        absi = torch.arange(sl - w, sl, device=k.device)
+        slots = absi % w
+        rk = torch.zeros((b, w, kh, hd), dtype=k.dtype, device=k.device)
+        rv = torch.zeros((b, w, kh, hd), dtype=v.dtype, device=v.device)
+        rk[:, slots] = k[:, sl - w :]
+        rv[:, slots] = v[:, sl - w :]
+        pos_idx = torch.zeros((w,), dtype=torch.int32, device=k.device)
+        pos_idx[slots] = absi.to(torch.int32)
+    else:
+        rk, rv = _pad_seq(k, w), _pad_seq(v, w)
+        pos_idx = torch.cat([torch.arange(sl, dtype=torch.int32, device=k.device),
+                             torch.full((w - sl,), -1, dtype=torch.int32, device=k.device)])
+    return {"k": rk, "v": rv, "pos_idx": pos_idx}
 
 
 # -------------------------------------------------------------- decode fwd --
@@ -149,11 +198,51 @@ def block_decode(p: Block, cfg: ModelConfig, kind: str, x, cache, pos: int):
     in place."""
     check_kind(kind)
     h = L.rms_norm(p.norm1, x, cfg.norm_eps)
-    y, ck, cv = L.mha_decode(p.attn, _attn_spec(cfg, False), h, cache["k"], cache["v"], pos)
+    if kind == "attn_global":
+        y, ck, cv = L.mha_decode(p.attn, _attn_spec(cfg, False), h, cache["k"], cache["v"], pos)
+        cache = {"k": ck, "v": cv}
+    elif kind == "attn_local":
+        y, cache = _local_decode(p.attn, cfg, h, cache, pos)
+    else:
+        y, st, cv = SSM.rglru_decode(p.mixer, _rglru_spec(cfg), h, cache["state"], cache["conv"])
+        cache = {"state": st, "conv": cv}
     x = x + y
     if p.ffn is not None:
         x = x + L.ffn(p.ffn, L.rms_norm(p.norm2, x, cfg.norm_eps), cfg.act)
-    return x, {"k": ck, "v": cv}
+    return x, cache
+
+
+def _local_decode(p: L.Attention, cfg: ModelConfig, h, cache, pos: int):
+    """Ring-buffer sliding-window decode: the new token's k/v and position
+    go into slot ``pos % window`` in place (k and v quantized by the
+    cache's dtype); scores in fp32, slots outside the window masked to
+    -inf, as in the reference."""
+    spec = _attn_spec(cfg, True)
+    b, one, _ = h.shape
+    w = cfg.window
+    q = L.dense(p.wq, h).reshape(b, one, spec.n_heads, spec.head_dim)
+    k = L.dense(p.wk, h).reshape(b, one, spec.n_kv_heads, spec.head_dim)
+    v = L.dense(p.wv, h).reshape(b, one, spec.n_kv_heads, spec.head_dim)
+    pvec = torch.full((b, one), pos, dtype=torch.int32, device=h.device)
+    q = L.apply_rope(q, pvec, spec.rope_theta)
+    k = L.apply_rope(k, pvec, spec.rope_theta)
+    slot = pos % w
+    ck, cv, pidx = cache["k"], cache["v"], cache["pos_idx"]
+    ck[:, slot : slot + one] = L._kv_quant(k, ck.dtype)
+    cv[:, slot : slot + one] = L._kv_quant(v, cv.dtype)
+    pidx[slot] = pos
+    ok = (pidx <= pos) & (pidx > pos - w) & (pidx >= 0)              # (w,)
+    rep = spec.n_heads // spec.n_kv_heads
+    qg = q.reshape(b, one, spec.n_kv_heads, rep, spec.head_dim)
+    scores = torch.einsum("bqkrh,bskh->bkrqs", qg.float(), L._kv_dequant(ck).float())
+    scores = scores / (spec.head_dim ** 0.5)
+    scores = torch.where(ok, scores, -math.inf)
+    attn = torch.softmax(scores, dim=-1)
+    o = torch.einsum(
+        "bkrqs,bskh->bqkrh", attn, L._kv_dequant(cv).float()
+    ).to(h.dtype).reshape(b, one, spec.n_heads * spec.head_dim)
+    y = L.dense(p.wo, o)
+    return y, {"k": ck, "v": cv, "pos_idx": pidx}
 
 
 # ----------------------------------------------------------- cache specs ---
@@ -161,8 +250,18 @@ def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, smax: int, dtype):
     """``TensorSpec`` tree of one block's decode cache."""
     check_kind(kind)
     kv_dt = torch.int8 if cfg.kv_cache_quant else dtype
-    shp = (batch, smax, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"k": TensorSpec(shp, kv_dt), "v": TensorSpec(shp, kv_dt)}
+    if kind == "attn_global":
+        shp = (batch, smax, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": TensorSpec(shp, kv_dt), "v": TensorSpec(shp, kv_dt)}
+    if kind == "attn_local":
+        w = cfg.window
+        shp = (batch, w, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": TensorSpec(shp, kv_dt), "v": TensorSpec(shp, kv_dt), "pos_idx": TensorSpec((w,), torch.int32)}
+    s = _rglru_spec(cfg)
+    return {
+        "state": TensorSpec((batch, s.width), torch.float32),
+        "conv": TensorSpec((batch, s.d_conv - 1, s.width), cfg.param_dtype),
+    }
 
 
 # ------------------------------------------------------------ full model ---

@@ -282,7 +282,7 @@ def test_flash_kernel_grid_matches_plain(cuda, dtype, causal, window, h, kh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("sq,skv,causal,window", [
     (1000, 1000, True, 0), (4097, 4097, True, 0), (64, 256, False, 0),
     (300, 100, True, 0), (300, 100, True, 64), (1, 77, False, 0), (129, 129, True, 1),
@@ -305,10 +305,10 @@ def test_flash_kernel_qwen_heads_and_strided_views(cuda, dtype):
 
 
 # bf16 tiling: the kernel's blocks hold 128 query rows (two consumers of 64)
-# and its K/V ring tiles 128 rows. Lengths on either side of a tile, windows
-# that cut through one, Sq > Skv, and whole-tile windows.
+# and its K/V ring tiles 128 rows (64 at hd 256). Lengths on either side of
+# a tile, windows that cut through one, Sq > Skv, and whole-tile windows.
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("sq,skv,causal,window", [
     (127, 127, True, 0), (128, 128, True, 0), (129, 129, True, 0), (255, 255, True, 0), (257, 257, True, 0),
     (129, 129, False, 0), (257, 257, False, 0), (300, 300, True, 100), (400, 400, True, 129),
@@ -320,7 +320,7 @@ def test_flash_kernel_bf16_tiles(cuda, hd, sq, skv, causal, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("window", [0, 129])
 def test_flash_kernel_bf16_batch2_qwen_heads(cuda, hd, window):
     q, k, v = _qkv((2, 257, 40, hd), (2, 257, 8, hd), torch.bfloat16, hd + window, cuda)
@@ -391,6 +391,39 @@ def test_decoder_prefill_on_card_launches_the_kernel_per_layer(cuda, dtype):
             # and no further from it than 1.5x the witness is.
             err, err_wit = _rel_rms(got, exp), _rel_rms(w, exp)
             assert err <= tol and err <= 1.5 * err_wit, (err, err_wit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemma3_prefill_on_card_launches_windowed_kernels_on_local_layers(cuda, dtype):
+    """Gemma3-12B at reduced width and depth (one group: 5 local layers with
+    window 32 + 1 global, hd 256): one launch per layer, windowed on the
+    local ones, and the prefill's logits and caches, and a decode step past
+    the window, as on the CPU."""
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("gemma3-12b").reduced(), attn_impl="chunked", head_dim=256,
+                              param_dtype=dtype)
+    m, m_cpu = build_model(cfg), build_model(cfg, device="cpu")
+    params = m.init(0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 100)).astype(np.int32)
+    nxt = torch.from_numpy(toks[:, :1].copy())
+    before = (flash_attention_cuda.launches, flash_attention_cuda.windowed_launches)
+    logits, caches = m.prefill(params, {"tokens": torch.from_numpy(toks).to(cuda)}, cache_len=120)
+    assert (flash_attention_cuda.launches - before[0], flash_attention_cuda.windowed_launches - before[1]) == (6, 5)
+    logits2, _ = m.decode_step(params, caches, nxt.to(cuda), 100)
+    assert flash_attention_cuda.launches - before[0] == 6
+    params_cpu = params.to("cpu")
+    ref, ref_caches = m_cpu.prefill(params_cpu, {"tokens": torch.from_numpy(toks)}, cache_len=120)
+    ref2, _ = m_cpu.decode_step(params_cpu, ref_caches, nxt, 100)
+    tol = _TOL[dtype]
+    for got, exp in ((logits, ref), (caches[0][0]["k"], ref_caches[0][0]["k"]), (logits2, ref2)):
+        got, exp = got.cpu().float(), exp.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, exp, rtol=tol, atol=tol)
+        else:  # as in test_decoder_prefill_on_card_launches_the_kernel_per_layer
+            assert _rel_rms(got, exp) <= tol
+    assert torch.equal(caches[0][0]["pos_idx"].cpu(), ref_caches[0][0]["pos_idx"])
 
 
 @pytest.mark.cuda

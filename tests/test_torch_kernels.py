@@ -353,9 +353,10 @@ def test_flash_limit_scales_with_the_row():
 
 
 def test_planted_faults_edit_both_kernels_loops():
-    """tools/flash_planted_faults.py's mutants each add one skipped tile to
-    the float32 kernel's KV loop and to the KV tile walk that the bfloat16
-    kernel's producer and consumers share."""
+    """tools/flash_planted_faults.py's tile mutants each add one skipped
+    tile to the float32 kernel's KV loop and mark the same tile as skipped
+    in the bfloat16 kernel's consumers, which still wait for it and release
+    its stage; its head-dim-256 mutants each make their one edit."""
     import sys
     from pathlib import Path
 
@@ -364,14 +365,20 @@ def test_planted_faults_edit_both_kernels_loops():
     import flash_planted_faults as planted
 
     src = (root / "src" / "repro_torch" / "csrc" / "flash_attn.cu").read_text()
-    for skip in planted.MUTANTS.values():
-        mutant = planted.mutant_source(src, skip)
+    for name, skip in planted.TILE_MUTANTS.items():
+        mutant = planted.mutant_source(src, name)
         line = f"if (q0 >= a.Sq / 2 && t == {skip}) continue;"
-        assert mutant.count(line) == 2
+        kind = planted.TILE_KIND_MUTANT.format(skip=skip)
         simt = mutant.split("flash_fwd_simt(Args a)")[1].split("\n}\n")[0]
-        walk = mutant.split("walk_kv_tiles(const Args& a, int q0, Visit&& visit)")[1].split("\n}\n")[0]
-        assert line in simt and line in walk
-        assert mutant.replace(f"    {line}\n", "") == src
+        wgmma = mutant.split("flash_fwd_wgmma(const __grid_constant__")[1].split("\n}\n")[0]
+        assert mutant.count(line) == 1 and line in simt
+        assert mutant.count(kind) == 1 and kind in wgmma
+        consumer = wgmma.split(kind)[0].rsplit("mbar_wait(bar_full(stage), phase);", 1)[1]
+        assert "walk_kv_tiles" not in consumer  # the tile is waited for before it is skipped
+        assert mutant.replace(f"    {line}\n", "").replace(kind, planted.TILE_KIND) == src
+    for name, (old, new) in planted.HD256_MUTANTS.items():
+        mutant = planted.mutant_source(src, name)
+        assert src.count(old) == 1 and mutant == src.replace(old, new)
 
 
 def test_res_usage_reads_cuobjdump_text():
