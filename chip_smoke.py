@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the dedup checkpoint
 save, training with dedup checkpoints at the full width of
 LLaVA-NeXT-Mistral-7B, Qwen2.5-32B prefill and prefix-cache serving at
-full width, and the sliding-window families (Gemma3-12B, RecurrentGemma-2B)
-at full width.
+full width, the sliding-window families (Gemma3-12B, RecurrentGemma-2B),
+and Qwen1.5-MoE-A2.7B, Mamba2-1.3B and Whisper-tiny at full width.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -89,7 +89,26 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    model's attention shapes (hd 256), with and without the window, bf16
    and float32, is held against the plain version and timed beside it and
    beside ``scaled_dot_product_attention``. Each model's phase must leave
-   nothing allocated on the card.
+   nothing allocated on the card;
+9. MoE, Mamba-2 and enc-dec at full width, bf16, random weights from
+   ``--seed``, each alone on the card, each also in float32 (decode vs a
+   fresh prefill within 2e-4). Qwen1.5-MoE-A2.7B (24 layers, 16 / 16
+   heads x 128, 60 experts top-4 + a shared FFN; 14.3 B parameters),
+   ``attn_impl="chunked"``: ``moe_traffic`` prefills 8,192 tokens at its
+   capacity factor 1.25 (24 flash launches) and decodes 8 (none), then
+   runs the same traffic at capacity factor 16 against a fresh prefill as
+   the model routes it (reported, with the expert ids that differ: bf16
+   flips near-tied experts) and with the traffic's expert choices replayed
+   (within 0.05); layer 0's drop share at 1.25; layer 0's MoE FFN on its first 512 tokens in
+   float32 on the card against the CPU (ids equal, within 2e-4); the flash
+   kernel at its layer shape (1, 8192, 16, 128); the float32 run at depth
+   4. Mamba2-1.3B (48 layers, 64 SSD heads x 64, state 128, chunk 128):
+   prefill 8,064 positions, 128 decode steps, a fresh prefill of 8,192.
+   Whisper-tiny (4 + 4 layers): 1,500 frame embeddings, a 440-token
+   prompt, self caches padded to 448, 8 decode steps, a fresh prefill of
+   448 (within 0.05). Neither launches the flash kernel. Mamba2's bf16
+   error is reported only: bf16 rounding over 48 layers and 128 steps puts
+   it at 0.05-0.07 by seed; the float32 runs are the checks.
 
 It prints ``main_path``, ``train``, ``prefill``, ``serving`` and ``family``
 JSON lines, a ``kernels`` JSON line, the card's name and power limit from nvidia-smi, and
@@ -101,6 +120,7 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1278,18 +1298,64 @@ def serve_phase(model, params, seed: int) -> dict:
     }
 
 
-def family_traffic(model, params, tokens, n_prefill: int, cache_len: int) -> dict:
-    """The sliding-window families' traffic: prefill ``n_prefill`` of
-    ``tokens`` (1, n) into ``cache_len``-slot caches, then decode the rest
-    one token at a time (teacher-forced), then prefill all of them afresh.
+def _model_on_card(cfg, gen):
+    """The model of ``cfg`` on the card with random weights from ``gen``,
+    and the seconds their init took."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    t = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    return model, params, time.perf_counter() - t
+
+
+def _free() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _prefill_profile(fn) -> tuple[dict, float]:
+    """One prefill under ``profile_calls``: its summary and the flash
+    kernel's device ms."""
+    raw = profile_calls(fn, 1)
+    return profile_summary(raw), sum(ms for name, (ms, _) in raw["by_name"].items() if "flash_fwd" in name)
+
+
+def pad_self_caches(caches: dict, slots: int) -> dict:
+    """An encoder-decoder prefill's caches with the self K/V (L, B, S, K,
+    hd) padded with zeros to ``slots`` positions, as a caller that decodes
+    past the prompt pads them; the cross K/V as they are."""
+    import torch.nn.functional as F
+
+    pad = {n: F.pad(t, (0, 0, 0, 0, 0, slots - t.shape[2])) for n, t in caches["self"].items()}
+    return {"self": pad, "cross": caches["cross"]}
+
+
+def family_traffic(model, params, tokens, n_prefill: int, cache_len: int, check: bool = True, frames=None) -> dict:
+    """A model's serving traffic: prefill ``n_prefill`` of ``tokens`` (1, n)
+    into ``cache_len``-slot caches, then decode the rest one token at a
+    time (teacher-forced), then (``check``) prefill all of them afresh. An
+    encoder-decoder model's prefills also take ``frames``, and its self
+    caches are padded to n slots before the decode (``pad_self_caches``).
     The flash kernel's counts are set to 0 just before the prefill and read
     after it and after the decode; the fresh prefill is the check, outside
-    the counts. Returns seconds, counts, and the relative max error of the
-    last decode step's logits against the fresh prefill's last logits."""
+    the counts. Returns seconds, counts, the caches, the last decode step's
+    logits, and their relative max error against the fresh prefill's last
+    logits (None without ``check``)."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attn import flash_attention_cuda
+
+    def prefill(toks):
+        if frames is None:
+            return model.prefill(params, {"tokens": toks}, cache_len=cache_len)
+        return model.prefill(params, {"tokens": toks, "frame_embeds": frames})
 
     sync = torch.cuda.synchronize if model.device.type == "cuda" else (lambda: None)
     sync()
@@ -1297,22 +1363,29 @@ def family_traffic(model, params, tokens, n_prefill: int, cache_len: int) -> dic
     for kind in ops.launch_counts:
         ops.launch_counts[kind] = 0
     t = time.perf_counter()
-    logits, caches = model.prefill(params, {"tokens": tokens[:, :n_prefill]}, cache_len=cache_len)
+    logits, caches = prefill(tokens[:, :n_prefill])
     sync()
     prefill_s = time.perf_counter() - t
     launches = {"prefill": flash_attention_cuda.launches, "prefill_windowed": flash_attention_cuda.windowed_launches}
     _check(bool(logits.float().isfinite().all()), "prefill logits not finite")
+    if frames is not None:
+        caches = pad_self_caches(caches, tokens.shape[1])
     t = time.perf_counter()
     for pos in range(n_prefill, tokens.shape[1]):
         logits, caches = model.decode_step(params, caches, tokens[:, pos : pos + 1], pos)
     sync()
     decode_s = time.perf_counter() - t
     launches["decode"] = flash_attention_cuda.launches - launches["prefill"]
-    ref, _ = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
-    a, b = logits[:, 0].float(), ref[:, 0].float()
-    err = float((a - b).abs().max() / (b.abs().max() + 1e-6))
+    _check(bool(logits.float().isfinite().all()), "decode logits not finite")
+    err = rel_err(logits, prefill(tokens)[0]) if check else None
     return {"prefill_s": prefill_s, "decode_ms_per_token": decode_s / (tokens.shape[1] - n_prefill) * 1e3,
-            "flash_launches": launches, "decode_vs_prefill_rel_err": err, "caches": caches}
+            "flash_launches": launches, "decode_vs_prefill_rel_err": err, "caches": caches, "logits": logits}
+
+
+def rel_err(logits, ref) -> float:
+    """Relative max error of (B, 1, V) last logits against ``ref``'s."""
+    a, b = logits[:, 0].float(), ref[:, 0].float()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-6))
 
 
 # The sliding-window families (phase 8): arch, from src/repro/configs/; the
@@ -1342,19 +1415,12 @@ def family_phase(arch: str, want_launches: int, want_windowed: int, check: Flash
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attn import flash_attention_cuda, flash_attention_plain
-    from repro_torch.models import build_model
 
     _warm_cublas()
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     mem_before = torch.cuda.memory_allocated()
     cfg = dataclasses.replace(get_config(arch), attn_impl="chunked")
-    model = build_model(cfg)
-    t = time.perf_counter()
-    params = model.init(gen)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
+    model, params, init_s = _model_on_card(cfg, gen)
     n_params = sum(p.numel() for p in params.parameters())
     weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     # floors: the blocks' products (2 FLOP a parameter and token) and the
@@ -1371,12 +1437,11 @@ def family_phase(arch: str, want_launches: int, want_windowed: int, check: Flash
     peak = torch.cuda.max_memory_allocated()
     launches = traffic["flash_launches"]
     check_family_traffic(arch, traffic, want_launches, want_windowed, "bfloat16")
+    del traffic["logits"]
     rings = [c for c in traffic.pop("caches")[0] if "pos_idx" in c]
     _check(all(int(c["pos_idx"].max()) == PREFILL_CACHE - 1 for c in rings), f"{arch}: ring caches missed a decode step")
-    raw = profile_calls(lambda: model.prefill(params, {"tokens": tokens[:, :PREFILL_TOKENS]}, cache_len=PREFILL_CACHE), 1)
-    prof = profile_summary(raw)
-    flash_ms = sum(ms for name, (ms, _) in raw["by_name"].items() if "flash_fwd" in name)
-    del raw
+    prof, flash_ms = _prefill_profile(
+        lambda: model.prefill(params, {"tokens": tokens[:, :PREFILL_TOKENS]}, cache_len=PREFILL_CACHE))
     torch.cuda.empty_cache()
 
     layer = cfg.block_pattern.index("attn_local")
@@ -1384,22 +1449,9 @@ def family_phase(arch: str, want_launches: int, want_windowed: int, check: Flash
     entries = {}
     for window in [cfg.window] + ([0] if "attn_global" in cfg.block_pattern else []):
         shape = f"{arch} q {tuple(q.shape)} k/v {tuple(k.shape)}, causal, window {window}"
-        check(q, k, v, causal=True, window=window, what=f"flash at {shape}, bf16")
-        check(q.float(), k.float(), v.float(), causal=True, window=window, what=f"flash at {shape}, float32")
-        torch.cuda.synchronize()
-        ms = _timed(lambda: flash_attention_cuda(q, k, v, window=window), 5)
-        plain_ms = _timed(lambda: flash_attention_plain(q, k, v, window=window), 2)
-        library_ms, backend = library_attention_ms(q, k, v, window)
-        ops_ms, bytes_ms = flash_bound_ms(q, k, True, window)
-        entries[shape] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": library_ms, "library_call": f"scaled_dot_product_attention ({backend})"
-                                                      + (", boolean band mask" if window else ", is_causal"),
-            "tflops": ops_ms / ms * BF16_FLOP_PER_S * 1e-12,
-            "launches_per_prefill": launches["prefill_windowed"] if window
-            else launches["prefill"] - launches["prefill_windowed"],
-        }
+        entries[shape] = flash_entry(check, q, k, v, window, shape)
+        entries[shape]["launches_per_prefill"] = launches["prefill_windowed"] if window \
+            else launches["prefill"] - launches["prefill_windowed"]
     del q, k, v
     line = {
         "model": f"{arch}, attn_impl chunked, {cfg.n_layers} layers, {cfg.param_dtype}, random weights",
@@ -1411,31 +1463,438 @@ def family_phase(arch: str, want_launches: int, want_windowed: int, check: Flash
         "prefill_flash_share": None if not prof["device_ms"] else flash_ms / prof["device_ms"],
     }
     del model, params, rings, traffic
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
 
-    model = build_model(dataclasses.replace(cfg, param_dtype=torch.float32))
-    params = model.init(gen)
+    model, params, _ = _model_on_card(dataclasses.replace(cfg, param_dtype=torch.float32), gen)
     traffic = family_traffic(model, params, tokens, PREFILL_TOKENS, PREFILL_CACHE)
-    del traffic["caches"], model, params, tokens
+    del traffic["caches"], traffic["logits"], model, params, tokens
     check_family_traffic(arch, traffic, want_launches, want_windowed, "float32")
     line["float32"] = traffic
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     line["left_allocated_bytes"] = torch.cuda.memory_allocated() - mem_before
     return line, entries
 
 
-def check_family_traffic(arch: str, traffic: dict, want_launches: int, want_windowed: int, dtype: str) -> None:
-    """``family_traffic``'s counts and its decode-vs-prefill error, against
-    ``FAMILIES`` and ``DECODE_REL_LIMIT``."""
+def flash_entry(check: FlashCheck, q, k, v, window: int, shape: str) -> dict:
+    """The flash kernel on a model's own attention inputs (causal, with
+    ``window``): held against the plain version in bf16 and float32, timed
+    beside it and beside ``scaled_dot_product_attention``, with its bound."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import flash_attention_cuda, flash_attention_plain
+
+    check(q, k, v, causal=True, window=window, what=f"flash at {shape}, bf16")
+    check(q.float(), k.float(), v.float(), causal=True, window=window, what=f"flash at {shape}, float32")
+    torch.cuda.synchronize()
+    ms = _timed(lambda: flash_attention_cuda(q, k, v, window=window), 5)
+    plain_ms = _timed(lambda: flash_attention_plain(q, k, v, window=window), 2)
+    library_ms, backend = library_attention_ms(q, k, v, window)
+    ops_ms, bytes_ms = flash_bound_ms(q, k, True, window)
+    return {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms, "library_call": f"scaled_dot_product_attention ({backend})"
+                                                  + (", boolean band mask" if window else ", is_causal"),
+        "tflops": ops_ms / ms * BF16_FLOP_PER_S * 1e-12,
+    }
+
+
+def check_family_traffic(arch: str, traffic: dict, want_launches: int, want_windowed: int, dtype: str,
+                         err_key: "str | None" = "decode_vs_prefill_rel_err") -> None:
+    """``family_traffic``'s counts, and its decode-vs-prefill error under
+    ``err_key`` (None: the error is reported, not held to a limit),
+    against ``FAMILIES`` and ``DECODE_REL_LIMIT``."""
     launches = traffic["flash_launches"]
     _check(launches == {"prefill": want_launches, "prefill_windowed": want_windowed, "decode": 0},
            f"{arch}, {dtype}: flash launches {launches}, want {want_launches} a prefill "
            f"({want_windowed} windowed), 0 a decode")
-    _check(traffic["decode_vs_prefill_rel_err"] < DECODE_REL_LIMIT[dtype],
-           f"{arch}, {dtype}: decode after {DECODE_TOKENS} steps is {traffic['decode_vs_prefill_rel_err']} "
-           f"from a full prefill (limit {DECODE_REL_LIMIT[dtype]})")
+    _check(err_key is None or traffic[err_key] < DECODE_REL_LIMIT[dtype],
+           f"{arch}, {dtype}: {err_key} is {traffic.get(err_key)} (limit {DECODE_REL_LIMIT[dtype]})")
+
+
+# Phase 9: Qwen1.5-MoE-A2.7B (src/repro/configs/qwen2_moe_a2_7b.py) at full
+# width and depth; its decode-vs-prefill check runs at capacity factor 16,
+# where no (token, choice) is dropped (the reference's
+# test_moe_consistency_without_capacity_drops), and in float32 at depth 4
+# (11.6 GB of weights); layer 0's MoE FFN is held on the card against the
+# CPU on its first 512 tokens' inputs.
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_CHECK_CAPACITY = 16.0
+MOE_FP32_LAYERS = 4
+MOE_LAYER0_TOKENS = 512
+# Mamba2-1.3B: a prefill of 63 chunks of 128, 128 decode steps, and a fresh
+# prefill of 8,192 positions (the reference takes multiples of the chunk).
+MAMBA_ARCH = "mamba2-1.3b"
+MAMBA_PREFILL = 8064
+MAMBA_TOKENS = 8192
+# Whisper-tiny: 1,500 frame embeddings (30 s of audio, the encoder's own
+# length), a 440-token prompt, and 8 decode steps to its 448-token context.
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_FRAMES = 1500
+WHISPER_PROMPT = 440
+WHISPER_CONTEXT = 448
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Record the expert ids (T, k) of every MoE routing call made inside
+    the block, in call order (one call a layer and forward)."""
+    from repro_torch.models import moe as MOE
+
+    calls = []
+    inner = MOE._routing
+
+    def routing(p, s, x2d):
+        out = inner(p, s, x2d)
+        calls.append(out[0])
+        return out
+
+    MOE._routing = routing
+    try:
+        yield calls
+    finally:
+        MOE._routing = inner
+
+
+@contextlib.contextmanager
+def replayed_routing(forced: list):
+    """Route the MoE calls made inside the block to ``forced``'s expert ids
+    (T, k), one entry a call in order, each weighted by the call's own
+    probabilities renormalized over them (aux loss 0): the forward the
+    model computes had its router chosen those experts."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+
+    inner, it = MOE._routing, iter(forced)
+
+    def routing(p, s, x2d):
+        probs = torch.softmax(MOE.dense(p.router, x2d).float(), dim=-1)
+        ids = next(it)
+        w = torch.gather(probs, 1, ids)
+        return ids, (w / w.sum(dim=-1, keepdim=True)).to(x2d.dtype), torch.zeros((), device=x2d.device)
+
+    MOE._routing = routing
+    try:
+        yield
+    finally:
+        MOE._routing = inner
+
+
+def moe_traffic(model, params, tokens, n_prefill: int, cache_len: int) -> dict:
+    """The MoE model's traffic: ``family_traffic`` at the config's capacity
+    factor (timed and counted, no check: a fresh prefill of another length
+    groups and drops other tokens), then the same traffic at
+    ``MOE_CHECK_CAPACITY`` (no drops) on the same parameters, its routing
+    recorded, against a fresh prefill of all the tokens twice: as the model
+    routes it (``decode_vs_prefill_rel_err``, with how many of the last
+    token's (layer, choice) expert ids and of all (token, layer) rows
+    differ from the traffic's), and with the traffic's expert choices
+    replayed (``decode_vs_replayed_prefill_rel_err``), which takes out the
+    bf16 router's flips of near-tied experts and leaves the caches and the
+    decode path to the check."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    out = family_traffic(model, params, tokens, n_prefill, cache_len, check=False)
+    del out["caches"], out["logits"]
+    cf = MOE_CHECK_CAPACITY
+    ref_model = build_model(dataclasses.replace(model.cfg, capacity_factor=cf), device=model.device)
+    with recorded_routing() as calls:
+        chk = family_traffic(ref_model, params, tokens, n_prefill, cache_len, check=False)
+    n, steps = model.cfg.n_layers, tokens.shape[1] - n_prefill
+    forced = [torch.cat([calls[i]] + [calls[n * (1 + t) + i] for t in range(steps)]) for i in range(n)]
+    del calls
+    with recorded_routing() as fresh:
+        ref, _ = ref_model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+    with replayed_routing(forced):
+        replayed, _ = ref_model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+    out.update(
+        check_capacity_factor=cf, check_prefill_s=chk["prefill_s"],
+        check_decode_ms_per_token=chk["decode_ms_per_token"],
+        decode_vs_prefill_rel_err=rel_err(chk["logits"], ref),
+        decode_vs_replayed_prefill_rel_err=rel_err(chk["logits"], replayed),
+        last_token_expert_ids=sum(f[-1].numel() for f in forced),
+        last_token_expert_ids_differ=sum(int((f[-1] != r[-1]).sum()) for f, r in zip(forced, fresh)),
+        expert_id_rows=sum(f.shape[0] for f in forced),
+        expert_id_rows_differ=sum(int((f != r).any(dim=1).sum()) for f, r in zip(forced, fresh)),
+        caches=chk["caches"],
+    )
+    return out
+
+
+def moe_layer0_input(params, cfg, tokens):
+    """Layer 0's MoE input: ``norm2`` of the embedded tokens plus layer 0's
+    attention (``mha`` as the prefill runs it)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    blk = params.blocks[0]
+    b, s = tokens.shape
+    with torch.no_grad():
+        x = L.embed(params.embed, tokens)
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        x = x + L.mha(blk.attn, T._attn_spec(cfg, False), L.rms_norm(blk.norm1, x, cfg.norm_eps), positions)
+        return L.rms_norm(blk.norm2, x, cfg.norm_eps)
+
+
+def moe_drop_share(params, cfg, tokens) -> float:
+    """The share of layer 0's (token, choice) pairs its capacity drops on
+    ``tokens`` at the config's capacity factor."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    spec = T._moe_spec(cfg)
+    h = moe_layer0_input(params, cfg, tokens)
+    with torch.no_grad():
+        ids, _, _ = MOE._routing(params.blocks[0].moe, spec, h.reshape(-1, cfg.d_model))
+        _, keep = MOE.dispatch_slots(spec, ids, MOE.group_size(spec, ids.shape[0]))
+    return 1.0 - float(keep.float().mean())
+
+
+def moe_layer0_check(params, cfg, tokens) -> dict:
+    """Layer 0's ``moe_ffn`` on its own inputs for ``tokens``, with the
+    layer's weights and the inputs cast to float32: on the parameters'
+    device against the port on the CPU. Expert ids must be equal; returns
+    them and the output's max abs and relative max error."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    spec = T._moe_spec(cfg)
+    h = moe_layer0_input(params, cfg, tokens).float().reshape(-1, cfg.d_model)
+    outs = []
+    with torch.no_grad():
+        for dev in (h.device, torch.device("cpu")):
+            moe = copy.deepcopy(params.blocks[0].moe).to(device=dev, dtype=torch.float32)
+            x = h.to(dev)
+            ids, _, _ = MOE._routing(moe, spec, x)
+            y, _ = MOE.moe_ffn(moe, spec, x[None])
+            outs.append((ids.cpu(), y[0].cpu()))
+            del moe, x
+    (ids_a, y_a), (ids_b, y_b) = outs
+    err = float((y_a - y_b).abs().max())
+    return {"tokens": h.shape[0], "expert_ids_equal": bool(torch.equal(ids_a, ids_b)),
+            "max_abs_err": err, "rel_err": err / (float(y_b.abs().max()) + 1e-6)}
+
+
+def moe_prefill_flop(params, cfg, n: int) -> float:
+    """The products a MoE prefill of n tokens does: attention projections,
+    router and shared FFN (2 FLOP a parameter and token), the experts on
+    their E x C capacity slots of every group, the one-hot dispatch and
+    combine products (2 G g E C D each), and attention's visible pairs."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    spec = T._moe_spec(cfg)
+    g = MOE.group_size(spec, n)
+    slots = (n // g) * spec.n_experts * MOE.capacity(spec, g)
+    blk = params.blocks[0]
+    dense_params = sum(p.numel() for m in (blk.attn, blk.moe.router, blk.moe.shared) if m is not None
+                       for p in m.parameters())
+    experts = 2 * slots * 3 * cfg.d_model * cfg.expert_d_ff
+    dispatch = 2 * 2 * slots * g * cfg.d_model
+    attn = 4 * cfg.n_heads * cfg.resolved_head_dim * attention_pairs(n, n, True, 0)
+    return cfg.n_layers * (2 * dense_params * n + experts + dispatch + attn)
+
+
+def moe_phase(check: FlashCheck, gen) -> tuple[dict, dict]:
+    """Phase 9, Qwen1.5-MoE-A2.7B: full width, all 24 layers, bf16,
+    ``attn_impl="chunked"``, random weights from ``gen``. ``moe_traffic``
+    at the prefill phase's size (24 flash launches a prefill, 0 a decode
+    step; at capacity factor 16 the decode within 0.05 of the fresh prefill
+    with the traffic's expert choices replayed, the plain error reported);
+    its prefill profiled; layer 0's drop share at the config's capacity factor; layer
+    0's MoE on the card against the CPU in float32; the flash kernel at
+    layer 0's attention inputs. Then ``moe_traffic`` on the model in
+    float32 at depth ``MOE_FP32_LAYERS``, both errors within 2e-4. Returns
+    the ``family`` line and the kernel's entry for the ``kernels`` line."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    _warm_cublas()
+    _free()
+    mem_before = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), attn_impl="chunked")
+    model, params, init_s = _model_on_card(cfg, gen)
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_CACHE), generator=gen, device=model.device)
+    torch.cuda.reset_peak_memory_stats()
+    traffic = moe_traffic(model, params, tokens, PREFILL_TOKENS, PREFILL_CACHE)
+    peak = torch.cuda.max_memory_allocated()
+    del traffic["caches"]
+    check_family_traffic(MOE_ARCH, traffic, cfg.n_layers, 0, "bfloat16", "decode_vs_replayed_prefill_rel_err")
+    prof, flash_ms = _prefill_profile(
+        lambda: model.prefill(params, {"tokens": tokens[:, :PREFILL_TOKENS]}, cache_len=PREFILL_CACHE))
+    _free()
+    drop_share = moe_drop_share(params, cfg, tokens[:, :PREFILL_TOKENS])
+    layer0 = moe_layer0_check(params, cfg, tokens[:, :MOE_LAYER0_TOKENS])
+    _check(layer0["expert_ids_equal"] and layer0["rel_err"] < DECODE_REL_LIMIT["float32"],
+           f"{MOE_ARCH}: layer 0's MoE on the card against the CPU in float32: {layer0}")
+    q, k, v = layer0_qkv(params, cfg, tokens[:, :PREFILL_TOKENS])
+    shape = f"{MOE_ARCH} q {tuple(q.shape)} k/v {tuple(k.shape)}, causal"
+    entry = {shape: {**flash_entry(check, q, k, v, 0, shape), "launches_per_prefill": traffic["flash_launches"]["prefill"]}}
+    del q, k, v
+    line = {
+        "model": f"{MOE_ARCH}, attn_impl chunked, {cfg.n_layers} layers, {cfg.param_dtype}, random weights",
+        "parameters": sum(p.numel() for p in params.parameters()), "init_s": init_s,
+        "tokens": PREFILL_TOKENS, "cache_len": PREFILL_CACHE, "batch": 1,
+        "capacity_factor": cfg.capacity_factor, "moe_group": cfg.moe_group, **traffic,
+        "layer0_drop_share": drop_share, "layer0_moe_card_vs_cpu_float32": layer0,
+        "peak_memory_bytes": peak, "weight_bytes": weight_bytes,
+        "prefill_floor_s": moe_prefill_flop(params, cfg, PREFILL_TOKENS) / BF16_FLOP_PER_S,
+        # dense dispatch runs every expert on a decode step: all weights read
+        "decode_floor_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "profile_prefill": prof, "prefill_flash_device_ms": flash_ms,
+        "prefill_flash_share": None if not prof["device_ms"] else flash_ms / prof["device_ms"],
+    }
+    del model, params, traffic
+    _free()
+
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32, n_layers=MOE_FP32_LAYERS)
+    model, params, _ = _model_on_card(cfg32, gen)
+    traffic = moe_traffic(model, params, tokens, PREFILL_TOKENS, PREFILL_CACHE)
+    del traffic["caches"], model, params, tokens
+    check_family_traffic(MOE_ARCH, traffic, MOE_FP32_LAYERS, 0, "float32")
+    check_family_traffic(MOE_ARCH, traffic, MOE_FP32_LAYERS, 0, "float32", "decode_vs_replayed_prefill_rel_err")
+    line["float32"] = {"layers": MOE_FP32_LAYERS, **traffic}
+    _free()
+    line["left_allocated_bytes"] = torch.cuda.memory_allocated() - mem_before
+    return line, entry
+
+
+def mamba_prefill_flop(params, cfg, n: int) -> float:
+    """A Mamba-2 prefill's products: 2 FLOP a block parameter and position,
+    and the SSD's per chunk: C.B (2 Q^2 N), the within-chunk mix (2 Q^2 H
+    P), the chunk states and their read-out (2 x 2 Q N H P)."""
+    from repro_torch.models import transformer as T
+
+    s = T._mamba_spec(cfg)
+    q, h, hp, st = s.chunk, s.n_heads, s.head_dim, s.d_state
+    ssd = (n // q) * (2 * q * q * st + 2 * q * q * h * hp + 4 * q * st * h * hp)
+    return 2 * sum(p.numel() for p in params.blocks.parameters()) * n + cfg.n_layers * ssd
+
+
+def mamba_phase(gen) -> dict:
+    """Phase 9, Mamba2-1.3B: full width, all 48 layers, bf16, random
+    weights from ``gen``. ``family_traffic``: prefill ``MAMBA_PREFILL``
+    positions, decode to ``MAMBA_TOKENS``, against a fresh prefill (no
+    flash launch; the bf16 error reported); the prefill profiled. Then the
+    same traffic in float32, held within 2e-4. Returns the ``family``
+    line."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    _warm_cublas()
+    _free()
+    mem_before = torch.cuda.memory_allocated()
+    cfg = get_config(MAMBA_ARCH)
+    model, params, init_s = _model_on_card(cfg, gen)
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    tokens = torch.randint(0, cfg.vocab, (1, MAMBA_TOKENS), generator=gen, device=model.device)
+    torch.cuda.reset_peak_memory_stats()
+    traffic = family_traffic(model, params, tokens, MAMBA_PREFILL, MAMBA_TOKENS)
+    peak = torch.cuda.max_memory_allocated()
+    del traffic["caches"], traffic["logits"]
+    # bf16: reported, not held to a limit (48 layers and 128 steps of bf16
+    # rounding put it at 0.05-0.07 by seed, PERF.md 6); float32 is the check
+    check_family_traffic(MAMBA_ARCH, traffic, 0, 0, "bfloat16", None)
+    prof, flash_ms = _prefill_profile(lambda: model.prefill(params, {"tokens": tokens[:, :MAMBA_PREFILL]}))
+    line = {
+        "model": f"{MAMBA_ARCH}, {cfg.n_layers} layers, {cfg.param_dtype}, random weights",
+        "parameters": sum(p.numel() for p in params.parameters()), "init_s": init_s,
+        "tokens": MAMBA_PREFILL, "decode_to": MAMBA_TOKENS, "batch": 1, "chunk": cfg.ssm_chunk, **traffic,
+        "peak_memory_bytes": peak, "weight_bytes": weight_bytes,
+        "prefill_floor_s": mamba_prefill_flop(params, cfg, MAMBA_PREFILL) / BF16_FLOP_PER_S,
+        "decode_floor_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "profile_prefill": prof, "prefill_flash_device_ms": flash_ms,
+    }
+    del model, params, traffic
+    _free()
+
+    model, params, _ = _model_on_card(dataclasses.replace(cfg, param_dtype=torch.float32), gen)
+    traffic = family_traffic(model, params, tokens, MAMBA_PREFILL, MAMBA_TOKENS)
+    del traffic["caches"], traffic["logits"], model, params, tokens
+    check_family_traffic(MAMBA_ARCH, traffic, 0, 0, "float32")
+    line["float32"] = traffic
+    _free()
+    line["left_allocated_bytes"] = torch.cuda.memory_allocated() - mem_before
+    return line
+
+
+def whisper_prefill_flop(params, cfg, n_enc: int, n_dec: int) -> float:
+    """An enc-dec prefill's products: the encoder's blocks on n_enc frames,
+    the decoder's on n_dec tokens (its cross K/V projections on the n_enc
+    frames), the unembedding of the n_dec tokens, and attention's visible
+    pairs (encoder n_enc^2, causal decoder, cross n_dec x n_enc)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    enc = sum(p.numel() for p in params.enc_blocks.parameters())
+    dec = sum(p.numel() for p in params.dec_blocks.parameters())
+    cross_kv = cfg.n_layers * 2 * d * cfg.n_kv_heads * hd
+    products = 2 * (enc * n_enc + (dec - cross_kv) * n_dec + cross_kv * n_enc + params.embed.table.numel() * n_dec)
+    pairs = cfg.n_enc_layers * n_enc * n_enc + cfg.n_layers * (attention_pairs(n_dec, n_dec, True, 0) + n_dec * n_enc)
+    return products + 4 * cfg.n_heads * hd * pairs
+
+
+def whisper_phase(gen) -> dict:
+    """Phase 9, Whisper-tiny: all 4 + 4 layers, bf16, random weights and
+    frame embeddings from ``gen``. ``family_traffic`` with the frames:
+    prefill ``WHISPER_PROMPT`` tokens, self caches padded to
+    ``WHISPER_CONTEXT``, decode to it, held against a fresh prefill of the
+    whole context (within 0.05; no flash launch); the prefill profiled.
+    Then the same traffic in float32 (within 2e-4). Returns the ``family``
+    line."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    _warm_cublas()
+    _free()
+    mem_before = torch.cuda.memory_allocated()
+    cfg = get_config(WHISPER_ARCH)
+    model, params, init_s = _model_on_card(cfg, gen)
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    frames = torch.randn((1, WHISPER_FRAMES, cfg.d_model), generator=gen, device=model.device)
+    tokens = torch.randint(0, cfg.vocab, (1, WHISPER_CONTEXT), generator=gen, device=model.device)
+    torch.cuda.reset_peak_memory_stats()
+    traffic = family_traffic(model, params, tokens, WHISPER_PROMPT, 0, frames=frames.to(cfg.param_dtype))
+    peak = torch.cuda.max_memory_allocated()
+    del traffic["caches"], traffic["logits"]
+    check_family_traffic(WHISPER_ARCH, traffic, 0, 0, "bfloat16")
+    batch = {"tokens": tokens[:, :WHISPER_PROMPT], "frame_embeds": frames.to(cfg.param_dtype)}
+    prof, flash_ms = _prefill_profile(lambda: model.prefill(params, batch))
+    cross_bytes = 2 * cfg.n_layers * WHISPER_FRAMES * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    line = {
+        "model": f"{WHISPER_ARCH}, {cfg.n_enc_layers} + {cfg.n_layers} layers, {cfg.param_dtype}, random weights",
+        "parameters": sum(p.numel() for p in params.parameters()), "init_s": init_s,
+        "frames": WHISPER_FRAMES, "tokens": WHISPER_PROMPT, "decode_to": WHISPER_CONTEXT, "batch": 1, **traffic,
+        "peak_memory_bytes": peak, "weight_bytes": weight_bytes,
+        "prefill_floor_s": whisper_prefill_flop(params, cfg, WHISPER_FRAMES, WHISPER_PROMPT) / BF16_FLOP_PER_S,
+        # a decode step reads every weight and the cross caches once
+        "decode_floor_ms": (weight_bytes + cross_bytes) / HBM_BYTES_PER_S * 1e3,
+        "profile_prefill": prof, "prefill_flash_device_ms": flash_ms,
+    }
+    del model, params, traffic, batch
+    _free()
+
+    model, params, _ = _model_on_card(dataclasses.replace(cfg, param_dtype=torch.float32), gen)
+    traffic = family_traffic(model, params, tokens, WHISPER_PROMPT, 0, frames=frames)
+    del traffic["caches"], traffic["logits"], model, params, tokens, frames
+    check_family_traffic(WHISPER_ARCH, traffic, 0, 0, "float32")
+    line["float32"] = traffic
+    _free()
+    line["left_allocated_bytes"] = torch.cuda.memory_allocated() - mem_before
+    return line
 
 
 def main() -> int:
@@ -1527,6 +1986,16 @@ def main() -> int:
                f"the {arch} phase left {line['left_allocated_bytes']} B on the card")
         flash_row["launches_by_path"][f"{arch} prefill"] = line["flash_launches"]["prefill"]
         flash_row["hd256"].update(entries)
+
+    # ------------------- 9. MoE, Mamba-2 and enc-dec at full width
+    line, flash_row["moe"] = moe_phase(check, gen)
+    print("family " + json.dumps(line))
+    flash_row["launches_by_path"][f"{MOE_ARCH} prefill"] = line["flash_launches"]["prefill"]
+    lines = [line, mamba_phase(gen), whisper_phase(gen)]
+    for line in lines[1:]:
+        print("family " + json.dumps(line))
+    for line in lines:
+        _check(line["left_allocated_bytes"] == 0, f"{line['model']} left {line['left_allocated_bytes']} B on the card")
     flash_row.update(mismatches=check.mismatches, cases=check.cases, max_abs_err=max(check.max_abs_err.values()),
                      max_abs_err_by_dtype=check.max_abs_err, max_err_ratio=check.max_err_ratio)
     rows_out.append(flash_row)

@@ -1,12 +1,18 @@
-"""Carry a decoder's parameters and train state between the JAX package's
+"""Carry a model's parameters and train state between the JAX package's
 tree and the port.
 
 ``params_from_numpy`` takes the tree ``repro.models.transformer.init_decoder``
 builds, as numpy arrays (bfloat16 as its ``uint16`` bits; w8a16 weights as
 int8 with their float32 ``w_scale``) or as tensors, and returns the port's
 ``DecoderLM``, unstacking the leading ``G`` axis of ``tree["blocks"]`` into
-the module list. ``params_to_numpy`` is its inverse. Dense weights are
-``(d_in, d_out)`` in both packages, so nothing is transposed.
+the module list; for an encoder-decoder config it takes
+``repro.models.encdec.init_encdec``'s tree and returns an ``EncDecLM``,
+unstacking ``enc_blocks`` and ``dec_blocks`` on their layer axis.
+``params_to_numpy`` is its inverse. Blocks carry every kind's leaves:
+attention, the RG-LRU and Mamba-2 ``mixer``s, the ``moe`` FFN (``router``,
+the ``(E, D, F)`` / ``(E, F, D)`` expert arrays, ``shared``) and the FFN.
+Dense weights are ``(d_in, d_out)`` in both packages, so nothing is
+transposed.
 
 ``train_state_to_tree`` spells a train state (``repro_torch.train``) as the
 JAX package's ``{"params": ..., "opt": {"master", "mu", "nu", "step"[,
@@ -26,11 +32,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models.encdec import DecBlock, EncDecLM
 from repro_torch.models.transformer import Block, DecoderLM, check_kind
 
-# The RG-LRU mixer's array leaves, between its two dense projections.
+# The mixers' array leaves, between their two dense projections, in their
+# modules' argument order.
 _RGLRU_ARRAYS = ("conv_w", "conv_b", "w_r", "b_r", "w_i", "b_i", "lam")
+_MAMBA_ARRAYS = ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm_scale")
+_ATTN = ("wq", "wk", "wv", "wo")
+_FFN = ("gate", "up", "down")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -54,20 +66,42 @@ def _dense(d: dict, device) -> L.Dense:
     return L.Dense(_tensor(d["w"], device), opt.get("b"), opt.get("w_scale"))
 
 
+def _attn(d: dict, device) -> L.Attention:
+    return L.Attention(*(_dense(d[n], device) for n in _ATTN))
+
+
+def _ffn(d: dict, device) -> L.FFN:
+    return L.FFN(*(_dense(d[n], device) for n in _FFN))
+
+
+def _norm(d: dict, device) -> L.RMSNorm:
+    return L.RMSNorm(_tensor(d["scale"], device))
+
+
+def _mixer(m: dict, device) -> "SSM.RGLRU | SSM.Mamba2":
+    cls, arrays = (SSM.Mamba2, _MAMBA_ARRAYS) if "a_log" in m else (SSM.RGLRU, _RGLRU_ARRAYS)
+    return cls(_dense(m["in_proj"], device), *(_tensor(m[n], device) for n in arrays), _dense(m["out_proj"], device))
+
+
+def _moe(m: dict, device) -> MOE.MoE:
+    experts = MOE.Experts(*(_tensor(m["experts"][n], device) for n in _FFN))
+    return MOE.MoE(_dense(m["router"], device), experts, _ffn(m["shared"], device) if "shared" in m else None)
+
+
 def _block(d: dict, device) -> Block:
-    attn = mixer = None
-    if "attn" in d:
-        attn = L.Attention(*(_dense(d["attn"][n], device) for n in ("wq", "wk", "wv", "wo")))
-    if "mixer" in d:
-        m = d["mixer"]
-        mixer = SSM.RGLRU(_dense(m["in_proj"], device), *(_tensor(m[n], device) for n in _RGLRU_ARRAYS),
-                          _dense(m["out_proj"], device))
-    norm1 = L.RMSNorm(_tensor(d["norm1"]["scale"], device))
-    if "ffn" not in d:
-        return Block(norm1, attn, mixer=mixer)
-    f = d["ffn"]
-    return Block(norm1, attn, L.RMSNorm(_tensor(d["norm2"]["scale"], device)),
-                 L.FFN(*(_dense(f[n], device) for n in ("gate", "up", "down"))), mixer=mixer)
+    return Block(
+        _norm(d["norm1"], device),
+        _attn(d["attn"], device) if "attn" in d else None,
+        _norm(d["norm2"], device) if "norm2" in d else None,
+        _ffn(d["ffn"], device) if "ffn" in d else None,
+        mixer=_mixer(d["mixer"], device) if "mixer" in d else None,
+        moe=_moe(d["moe"], device) if "moe" in d else None,
+    )
+
+
+def _dec_block(d: dict, device) -> DecBlock:
+    return DecBlock(_norm(d["norm1"], device), _attn(d["self_attn"], device), _norm(d["norm_x"], device),
+                    _attn(d["cross_attn"], device), _norm(d["norm2"], device), _ffn(d["ffn"], device))
 
 
 def _index(tree, g: int):
@@ -77,11 +111,23 @@ def _index(tree, g: int):
     return tree[g]
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> DecoderLM:
-    """The port's ``DecoderLM`` holding the JAX parameter tree's values
-    (numpy or tensor leaves), on the card unless ``device`` names another
+def _layers(stacked: dict, n: int) -> list[dict]:
+    return [_index(stacked, i) for i in range(n)]
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> "DecoderLM | EncDecLM":
+    """The port's ``DecoderLM`` (``EncDecLM`` for an encoder-decoder
+    config) holding the JAX parameter tree's values (numpy or tensor
+    leaves), on the card unless ``device`` names another
     (``resolve_device``)."""
     device = resolve_device(device)
+    if cfg.enc_dec:
+        return EncDecLM(
+            L.Embedding(_tensor(tree["embed"]["table"], device)),
+            [_block(d, device) for d in _layers(tree["enc_blocks"], cfg.n_enc_layers)],
+            [_dec_block(d, device) for d in _layers(tree["dec_blocks"], cfg.n_layers)],
+            _norm(tree["enc_norm"], device), _norm(tree["final_norm"], device),
+        )
     for kind in cfg.block_pattern:
         check_kind(kind)
     blocks = []
@@ -106,17 +152,29 @@ def _dense_tree(d: L.Dense) -> dict:
     return out
 
 
-def _block_tree(b: Block) -> dict:
-    out = {"norm1": {"scale": _array(b.norm1.scale)}}
-    if b.attn is not None:
-        out["attn"] = {n: _dense_tree(getattr(b.attn, n)) for n in ("wq", "wk", "wv", "wo")}
-    if b.mixer is not None:
-        m = b.mixer
-        out["mixer"] = {"in_proj": _dense_tree(m.in_proj), "out_proj": _dense_tree(m.out_proj),
-                        **{n: _array(getattr(m, n)) for n in _RGLRU_ARRAYS}}
-    if b.ffn is not None:
-        out["norm2"] = {"scale": _array(b.norm2.scale)}
-        out["ffn"] = {n: _dense_tree(getattr(b.ffn, n)) for n in ("gate", "up", "down")}
+def _module_tree(m, names) -> dict:
+    return {n: _dense_tree(getattr(m, n)) for n in names}
+
+
+def _block_tree(b: "Block | DecBlock") -> dict:
+    """The JAX tree of one block: every submodule the block holds."""
+    out = {}
+    for name, mod in b.named_children():
+        if isinstance(mod, L.RMSNorm):
+            out[name] = {"scale": _array(mod.scale)}
+        elif isinstance(mod, L.Attention):
+            out[name] = _module_tree(mod, _ATTN)
+        elif isinstance(mod, L.FFN):
+            out[name] = _module_tree(mod, _FFN)
+        elif isinstance(mod, MOE.MoE):
+            out[name] = {"router": _dense_tree(mod.router),
+                         "experts": {n: _array(getattr(mod.experts, n)) for n in _FFN}}
+            if mod.shared is not None:
+                out[name]["shared"] = _module_tree(mod.shared, _FFN)
+        else:
+            arrays = _MAMBA_ARRAYS if isinstance(mod, SSM.Mamba2) else _RGLRU_ARRAYS
+            out[name] = {"in_proj": _dense_tree(mod.in_proj), "out_proj": _dense_tree(mod.out_proj),
+                         **{n: _array(getattr(mod, n)) for n in arrays}}
     return out
 
 
@@ -134,8 +192,17 @@ def _stack(trees: list[dict]) -> dict:
     return out
 
 
-def params_to_numpy(params: DecoderLM, cfg: ModelConfig) -> dict:
-    """The JAX ``init_decoder`` tree (numpy leaves) of a port ``DecoderLM``."""
+def params_to_numpy(params: "DecoderLM | EncDecLM", cfg: ModelConfig) -> dict:
+    """The JAX ``init_decoder`` tree (numpy leaves) of a port ``DecoderLM``,
+    or the ``init_encdec`` tree of an ``EncDecLM``."""
+    if cfg.enc_dec:
+        return {
+            "embed": {"table": _array(params.embed.table)},
+            "enc_blocks": _stack([_block_tree(b) for b in params.enc_blocks]),
+            "dec_blocks": _stack([_block_tree(b) for b in params.dec_blocks]),
+            "enc_norm": {"scale": _array(params.enc_norm.scale)},
+            "final_norm": {"scale": _array(params.final_norm.scale)},
+        }
     pl = cfg.pattern_len
     tree = {
         "embed": {"table": _array(params.embed.table)},
@@ -156,7 +223,8 @@ def params_to_numpy(params: DecoderLM, cfg: ModelConfig) -> dict:
 def _tree_of_named(named: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
     """The ``init_decoder`` tree of tensors keyed by parameter name (the
     names ``DecoderLM.named_parameters()`` gives), blocks stacked on the
-    group axis."""
+    group axis; for an encoder-decoder config the ``init_encdec`` tree,
+    each stack's blocks stacked on its layer axis."""
     nested: dict = {}
     for name, t in named.items():
         d = nested
@@ -164,6 +232,11 @@ def _tree_of_named(named: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
         for part in head:
             d = d.setdefault(part, {})
         d[last] = t
+    if cfg.enc_dec:
+        for stack in ("enc_blocks", "dec_blocks"):
+            layers = nested[stack]
+            nested[stack] = _stack_tensors([layers[str(i)] for i in range(len(layers))])
+        return nested
     blocks, tail = nested.pop("blocks", {}), nested.pop("tail", {})
     pl = cfg.pattern_len
     if cfg.n_groups:
@@ -182,9 +255,10 @@ def _stack_tensors(trees: list[dict]) -> dict:
 _MOMENTS = ("master", "mu", "nu", "err")
 
 
-def params_tree(params: DecoderLM, cfg: ModelConfig) -> dict:
-    """The JAX ``init_decoder`` tree of a ``DecoderLM``'s parameters, as
-    detached tensors on their device (block leaves stacked: copies)."""
+def params_tree(params: "DecoderLM | EncDecLM", cfg: ModelConfig) -> dict:
+    """The JAX tree of a model's parameters (``init_decoder``'s or
+    ``init_encdec``'s), as detached tensors on their device (block leaves
+    stacked: copies)."""
     return _tree_of_named({n: p.detach() for n, p in params.named_parameters()}, cfg)
 
 

@@ -1,20 +1,20 @@
 """Public model API: ``build_model(cfg, device=None) -> Model``.
 
-A port of the JAX package's ``models/model.py`` for decoder LMs. ``Model``
-exposes the functions the train loop and the server call:
+A port of the JAX package's ``models/model.py``. ``Model`` exposes the
+functions the train loop and the server call:
 
-    init(generator)                         -> params (a DecoderLM)
+    init(generator)                         -> params (a DecoderLM or EncDecLM)
     loss_fn(params, batch)                  -> (loss, metrics)
-    prefill(params, batch, cache_len)       -> (logits, caches)
+    prefill(params, batch[, cache_len])     -> (logits, caches)
     decode_step(params, caches, token, pos) -> (logits, caches)
     input_specs(shape)                      -> dict of TensorSpec
     cache_specs(shape)                      -> TensorSpec tree
 
 ``loss_fn`` runs with autograd; ``prefill`` and ``decode_step`` run
-without it. The decoder's block kinds ``attn_global``, ``attn_local``
-(Gemma3, RecurrentGemma's attention: ring-buffer caches) and ``rglru``
-(RecurrentGemma's recurrence) are ported; ``mla`` (ROADMAP A4b), ``moe``,
-``mamba2`` and encoder-decoder models (A4c) raise ``NotImplementedError``.
+without it. Every block kind of the JAX package is ported but ``mla``
+(ROADMAP A4b), which raises ``NotImplementedError``; encoder-decoder
+models (Whisper) take frame embeddings beside their tokens, and their
+``prefill`` takes no ``cache_len``, as in the reference.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import TensorSpec
@@ -71,20 +72,23 @@ def build_model(cfg: ModelConfig, device: "str | torch.device | None" = None) ->
     raises when there is no CUDA device)."""
     cfg.validate()
     if cfg.enc_dec:
-        raise NotImplementedError("encoder-decoder models are not ported yet: ROADMAP A4c")
+        return _build_encdec(cfg, resolve_device(device))
     for kind in cfg.block_pattern:
         T.check_kind(kind)
     return _build_decoder(cfg, resolve_device(device))
+
+
+def _generator(generator: "torch.Generator | int", dev: torch.device) -> torch.Generator:
+    if isinstance(generator, int):
+        return torch.Generator(device=dev).manual_seed(generator)
+    return generator
 
 
 def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
     aux_coeff = 0.01 if cfg.n_experts else 0.0
 
     def init(generator: "torch.Generator | int"):
-        gen = generator
-        if isinstance(generator, int):
-            gen = torch.Generator(device=dev).manual_seed(generator)
-        params = T.init_decoder(gen, cfg, device=dev)
+        params = T.init_decoder(_generator(generator, dev), cfg, device=dev)
         if cfg.weight_quant:
             params = L.quantize_dense_weights(params)
         return params
@@ -143,5 +147,49 @@ def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
 
     def cache_specs(shape: ShapeSpec):
         return T.decoder_cache_specs(cfg, shape.global_batch, shape.seq_len)
+
+    return Model(cfg, dev, init, loss_fn, prefill, decode_step, input_specs, cache_specs)
+
+
+# ----------------------------------------------------------- enc-dec (ASR) --
+def _build_encdec(cfg: ModelConfig, dev: torch.device) -> Model:
+    def init(generator: "torch.Generator | int"):
+        return ED.init_encdec(_generator(generator, dev), cfg, device=dev)
+
+    def _split(shape: ShapeSpec) -> tuple[int, int]:
+        """seq_len budget split: half encoder frames, half decoder tokens."""
+        return shape.seq_len // 2, shape.seq_len // 2
+
+    def loss_fn(params, batch):
+        enc_out = ED.encode(params, cfg, batch["frame_embeds"])
+        logits = ED.decode_train(params, cfg, batch["tokens"], enc_out)
+        loss, n_tok = lm_loss(logits, batch["labels"], cfg.vocab)
+        zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return loss, {"loss": loss, "aux_loss": zero, "tokens": n_tok}
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        logits, caches = ED.encdec_prefill(params, cfg, batch["tokens"], batch["frame_embeds"])
+        return logits[:, -1:], caches
+
+    @torch.no_grad()
+    def decode_step(params, caches, token, pos):
+        return ED.encdec_decode(params, cfg, caches, token, int(pos))
+
+    def input_specs(shape: ShapeSpec) -> dict[str, Any]:
+        b = shape.global_batch
+        s_enc, s_dec = _split(shape)
+        i32 = torch.int32
+        if shape.kind == "decode":
+            return {"token": TensorSpec((b, 1), i32), "pos": TensorSpec((), i32)}
+        specs = {"frame_embeds": TensorSpec((b, s_enc, cfg.d_model), cfg.param_dtype),
+                 "tokens": TensorSpec((b, s_dec), i32)}
+        if shape.kind == "train":
+            specs["labels"] = TensorSpec((b, s_dec), i32)
+        return specs
+
+    def cache_specs(shape: ShapeSpec):
+        s_enc, s_dec = _split(shape)
+        return ED.encdec_cache_specs(cfg, shape.global_batch, s_dec, s_enc)
 
     return Model(cfg, dev, init, loss_fn, prefill, decode_step, input_specs, cache_specs)

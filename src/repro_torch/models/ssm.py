@@ -1,17 +1,36 @@
-"""State-space sequence mixers: the RG-LRU of RecurrentGemma.
+"""State-space sequence mixers: Mamba-2 (SSD) and the RG-LRU of RecurrentGemma.
 
-A port of the RG-LRU half of the JAX package's ``models/ssm.py``: a gated
-linear recurrence ``h_t = a_t * h_{t-1} + b_t`` behind a depthwise causal
-convolution, with an O(1)-state single-token decode. The reference runs the
-prefill's recurrence with ``jax.lax.associative_scan``; here it is
-``_linear_scan``, a log-depth doubling scan over the sequence in plain
-torch (13 steps at 8,192 positions, each a few fp32 elementwise ops on
-``(B, S, W)``), not a loop over positions. No Pallas kernel is involved.
+A port of the JAX package's ``models/ssm.py``. No Pallas kernel is involved
+in either mixer: both are plain products, scans and elementwise work.
 
-Parameters live in an ``RGLRU`` module named as the JAX tree (``in_proj``,
-``conv_w``, ``conv_b``, ``w_r``, ``b_r``, ``w_i``, ``b_i``, ``lam``,
-``out_proj``); ``b_r``, ``b_i`` and ``lam`` stay float32, as in the
-reference. The Mamba-2 half waits for ROADMAP A4c.
+Mamba-2 uses the chunked state-space-duality algorithm: quadratic
+attention-like math within chunks of ``chunk`` positions and a linear
+recurrence across chunks (a Python loop over the chunks, where the
+reference runs ``lax.scan``). The within-chunk weights
+``C_i.B_j * exp(cum_i - cum_j) * dt_j`` are formed once as a
+``(B, NC, Q, Q, H)`` tensor and batch-multiplied with x, so the
+reference's four-operand einsum never forms its ``(B, NC, Q, Q, H, P)``
+product (17 GB in fp32 at Mamba2-1.3B's 8,192-position prefill). Above the
+diagonal ``cum_i - cum_j`` is positive and large at chunk 128, where its
+exponential overflows; the exponent is masked to -inf before ``exp``, so
+those weights are 0 (the reference masks the exponential's ``inf`` with
+``where``: the same values, and no ``inf * 0`` in the backward pass).
+
+The RG-LRU is a gated linear recurrence ``h_t = a_t * h_{t-1} + b_t``
+behind a depthwise causal convolution, with an O(1)-state single-token
+decode. The reference runs the prefill's recurrence with
+``jax.lax.associative_scan``; here it is ``_linear_scan``, a log-depth
+doubling scan over the sequence in plain torch (13 steps at 8,192
+positions, each a few fp32 elementwise ops on ``(B, S, W)``), not a loop
+over positions.
+
+Parameters live in ``Mamba2`` and ``RGLRU`` modules named as the JAX tree
+(``in_proj``, ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``, ``d_skip``,
+``norm_scale``, ``out_proj``; ``in_proj``, ``conv_w``, ``conv_b``, ``w_r``,
+``b_r``, ``w_i``, ``b_i``, ``lam``, ``out_proj``). ``a_log``, ``dt_bias``,
+``d_skip``, ``b_r``, ``b_i`` and ``lam`` stay float32, as in the reference.
+Both decodes update their state and conv window in place (the JAX versions
+return new ones) and return them.
 """
 
 from __future__ import annotations
@@ -26,6 +45,160 @@ from torch import nn
 from repro_torch.models.layers import Dense, _normal, _param, dense, init_dense
 
 
+# =========================================================== Mamba-2 (SSD) ==
+@dataclasses.dataclass(frozen=True)
+class MambaSpec:
+    d_model: int
+    d_state: int = 128         # N
+    head_dim: int = 64         # P
+    expand: int = 2
+    d_conv: int = 4
+    chunk: int = 128           # Q (SSD chunk length)
+    n_groups: int = 1          # G (B/C groups)
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+    @property
+    def conv_channels(self) -> int:
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+
+class Mamba2(nn.Module):
+    def __init__(self, in_proj: Dense, conv_w, conv_b, a_log, dt_bias, d_skip, norm_scale, out_proj: Dense):
+        super().__init__()
+        self.in_proj = in_proj
+        self.conv_w, self.conv_b = _param(conv_w), _param(conv_b)
+        self.a_log, self.dt_bias, self.d_skip = _param(a_log), _param(dt_bias), _param(d_skip)
+        self.norm_scale = _param(norm_scale)
+        self.out_proj = out_proj
+
+
+def init_mamba(gen, s: MambaSpec, dtype, device=None) -> Mamba2:
+    d_in = s.d_inner
+    proj_out = 2 * d_in + 2 * s.n_groups * s.d_state + s.n_heads
+    f32 = torch.float32
+    return Mamba2(
+        init_dense(gen, s.d_model, proj_out, dtype, device=device),
+        _normal(gen, (s.d_conv, s.conv_channels), 0.1, f32, device).to(dtype),
+        torch.zeros((s.conv_channels,), dtype=dtype, device=device),
+        torch.log(torch.linspace(1.0, 16.0, s.n_heads, dtype=f32, device=device)),
+        torch.zeros((s.n_heads,), dtype=f32, device=device),
+        torch.ones((s.n_heads,), dtype=f32, device=device),
+        torch.ones((d_in,), dtype=dtype, device=device),
+        init_dense(gen, d_in, s.d_model, dtype, device=device),
+    )
+
+
+def _split_proj(s: MambaSpec, zxbcdt: torch.Tensor):
+    d_in, gn = s.d_inner, s.n_groups * s.d_state
+    z = zxbcdt[..., :d_in]
+    x = zxbcdt[..., d_in : 2 * d_in]
+    bb = zxbcdt[..., 2 * d_in : 2 * d_in + gn]
+    cc = zxbcdt[..., 2 * d_in + gn : 2 * d_in + 2 * gn]
+    dt = zxbcdt[..., 2 * d_in + 2 * gn :]
+    return z, x, bb, cc, dt
+
+
+def _gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    y = y * F.silu(z.float()).to(y.dtype)
+    yf = y.float()
+    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+
+
+def mamba_prefill(p: Mamba2, s: MambaSpec, u: torch.Tensor, return_cache: bool = False):
+    """u: (B,S,D) -> (B,S,D) via chunked SSD; S must be a multiple of
+    ``chunk`` (ValueError otherwise). With ``return_cache`` also (the last
+    state (B,H,N,P) fp32, the conv window (B,K-1,C): the pre-activation
+    projection of the last K-1 positions)."""
+    bsz, sl, _ = u.shape
+    q = s.chunk
+    if sl % q:
+        raise ValueError(f"mamba_prefill takes a multiple of the chunk ({q}) positions, got {sl}")
+    nc = sl // q
+    z, x, bb, cc, dt_raw = _split_proj(s, dense(p.in_proj, u))
+    xbc_raw = torch.cat([x, bb, cc], dim=-1)
+    xbc = _causal_conv(xbc_raw, p.conv_w, p.conv_b)
+    gn = s.n_groups * s.d_state
+    x = xbc[..., : s.d_inner]
+    bb = xbc[..., s.d_inner : s.d_inner + gn]
+    cc = xbc[..., s.d_inner + gn :]
+
+    h, pdim, n = s.n_heads, s.head_dim, s.d_state
+    xh = x.reshape(bsz, nc, q, h, pdim)
+    bg = bb.reshape(bsz, nc, q, s.n_groups, n)[:, :, :, 0]          # G=1 -> (B,NC,Q,N)
+    cg = cc.reshape(bsz, nc, q, s.n_groups, n)[:, :, :, 0]
+    dt = F.softplus(dt_raw.float() + p.dt_bias)                     # (B,S,H)
+    dtc = dt.reshape(bsz, nc, q, h)
+    a = -torch.exp(p.a_log)                                         # (H,) negative
+    cum = torch.cumsum(dtc * a, dim=2)                              # (B,NC,Q,H) inclusive
+
+    # --- intra-chunk (quadratic) -------------------------------------------
+    cb = torch.einsum("bnim,bnjm->bnij", cg, bg).float()            # (B,NC,Q,Q)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=u.device))[:, :, None]
+    expo = torch.where(tri, cum[:, :, :, None, :] - cum[:, :, None, :, :], -math.inf)
+    wts = cb[..., None] * torch.exp(expo) * dtc[:, :, None, :, :]  # (B,NC,i,j,H)
+    xf = xh.float()
+    y_intra = torch.einsum("bnijh,bnjhp->bnihp", wts, xf)
+    del expo, wts
+
+    # --- chunk states + inter-chunk recurrence ------------------------------
+    last = cum[:, :, -1:, :]                                        # (B,NC,1,H)
+    w_state = torch.exp(last - cum) * dtc                           # (B,NC,Q,H)
+    s_c = torch.einsum("bnjm,bnjhp->bnhmp", bg.float(), xf * w_state[..., None])
+    chunk_decay = torch.exp(last[:, :, 0, :])                       # (B,NC,H)
+    hstate = torch.zeros((bsz, h, n, pdim), dtype=torch.float32, device=u.device)
+    h_before = []
+    for c in range(nc):
+        h_before.append(hstate)
+        hstate = chunk_decay[:, c, :, None, None] * hstate + s_c[:, c]
+    h_before = torch.stack(h_before, dim=1)                         # (B,NC,H,N,P)
+    y_inter = torch.einsum("bnim,bnhmp->bnihp", cg.float(), h_before) * torch.exp(cum)[..., None]
+
+    y = (y_intra + y_inter).reshape(bsz, sl, h, pdim)
+    y = y + p.d_skip[None, None, :, None] * xf.reshape(bsz, sl, h, pdim)
+    y = y.reshape(bsz, sl, s.d_inner).to(u.dtype)
+    y = _gated_norm(p.norm_scale, y, z)
+    out = dense(p.out_proj, y)
+    if return_cache:
+        return out, (hstate, xbc_raw[:, -(s.d_conv - 1):, :])
+    return out
+
+
+def mamba_decode(p: Mamba2, s: MambaSpec, u: torch.Tensor, state: torch.Tensor, conv_state: torch.Tensor):
+    """u: (B,1,D); state: (B,H,N,P) fp32; conv_state: (B,K-1,C). Returns
+    (y, state, conv_state), the two caches updated in place."""
+    bsz = u.shape[0]
+    z, x, bb, cc, dt_raw = _split_proj(s, dense(p.in_proj, u))
+    window = torch.cat([conv_state, torch.cat([x, bb, cc], dim=-1)], dim=1)  # (B,K,C)
+    y_conv = torch.einsum("bkc,kc->bc", window, p.conv_w) + p.conv_b
+    y_conv = F.silu(y_conv)[:, None, :]
+
+    h, pdim, n = s.n_heads, s.head_dim, s.d_state
+    gn = s.n_groups * n
+    x = y_conv[..., : s.d_inner].reshape(bsz, h, pdim)
+    bg = y_conv[..., s.d_inner : s.d_inner + gn].reshape(bsz, n)
+    cg = y_conv[..., s.d_inner + gn :].reshape(bsz, n)
+    dt = F.softplus(dt_raw[:, 0].float() + p.dt_bias)              # (B,H)
+    a = -torch.exp(p.a_log)
+    decay = torch.exp(dt * a[None, :])                             # (B,H)
+    upd = torch.einsum("bh,bm,bhp->bhmp", dt, bg.float(), x.float())
+    state.copy_(decay[:, :, None, None] * state + upd)
+    conv_state.copy_(window[:, 1:, :])
+    y = torch.einsum("bm,bhmp->bhp", cg.float(), state)
+    y = y + p.d_skip[None, :, None] * x.float()
+    y = y.reshape(bsz, 1, s.d_inner).to(u.dtype)
+    y = _gated_norm(p.norm_scale, y, z)
+    return dense(p.out_proj, y), state, conv_state
+
+
+# ================================================================= RG-LRU ==
 @dataclasses.dataclass(frozen=True)
 class RGLRUSpec:
     d_model: int

@@ -4,8 +4,10 @@ A port of the JAX package's ``models/transformer.py`` for the block kinds
 ``attn_global`` (global causal attention), ``attn_local`` (sliding-window
 attention with a ring-buffer KV cache of exactly ``window`` slots: Gemma3,
 RecurrentGemma) and ``rglru`` (the RG-LRU recurrence, ``models/ssm.py``:
-RecurrentGemma), each with an FFN when ``d_ff``. The other kinds raise
-``NotImplementedError`` naming their ROADMAP item.
+RecurrentGemma), each with an FFN when ``d_ff``; ``moe`` (global attention,
+then the routed FFN of ``models/moe.py`` behind ``norm2``: Qwen1.5-MoE,
+Llama-4-Scout) and ``mamba2`` (the SSD mixer alone: Mamba2). ``mla``
+raises ``NotImplementedError`` naming its ROADMAP item.
 
 The JAX package stacks the parameters of all groups of the repeating
 ``block_pattern`` on a leading axis and scans over them; here the blocks are
@@ -29,15 +31,12 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
-_PORTED = ("attn_global", "attn_local", "rglru")
-# Block kinds of the JAX package that later slices port (ROADMAP queue A).
-_NOT_PORTED = {
-    "mla": "multi-head latent attention, ROADMAP A4b",
-    "moe": "mixture of experts, ROADMAP A4c",
-    "mamba2": "the Mamba-2 SSM (its SSD chunked scan), ROADMAP A4c",
-}
+_PORTED = ("attn_global", "attn_local", "moe", "mamba2", "rglru")
+# Block kinds of the JAX package that a later slice ports (ROADMAP queue A).
+_NOT_PORTED = {"mla": "multi-head latent attention, ROADMAP A4b"}
 
 
 class TensorSpec(NamedTuple):
@@ -82,6 +81,31 @@ def _attn_spec(cfg: ModelConfig, local: bool) -> L.AttnSpec:
     )
 
 
+def _moe_spec(cfg: ModelConfig) -> MOE.MoESpec:
+    return MOE.MoESpec(
+        d_model=cfg.d_model,
+        n_experts=cfg.n_experts,
+        top_k=cfg.top_k,
+        expert_d_ff=cfg.expert_d_ff,
+        n_shared_experts=cfg.n_shared_experts,
+        shared_d_ff=cfg.shared_d_ff,
+        capacity_factor=cfg.capacity_factor,
+        moe_group=cfg.moe_group,
+        act=cfg.act,
+    )
+
+
+def _mamba_spec(cfg: ModelConfig) -> SSM.MambaSpec:
+    return SSM.MambaSpec(
+        d_model=cfg.d_model,
+        d_state=cfg.ssm_state,
+        head_dim=cfg.ssm_head_dim,
+        expand=cfg.ssm_expand,
+        d_conv=cfg.ssm_conv,
+        chunk=cfg.ssm_chunk,
+    )
+
+
 def _rglru_spec(cfg: ModelConfig) -> SSM.RGLRUSpec:
     return SSM.RGLRUSpec(
         d_model=cfg.d_model,
@@ -92,14 +116,16 @@ def _rglru_spec(cfg: ModelConfig) -> SSM.RGLRUSpec:
 
 
 class Block(nn.Module):
-    """One block: ``norm1``, then ``attn`` (the attention kinds) or
-    ``mixer`` (``rglru``), and with ``d_ff`` an FFN behind ``norm2``."""
+    """One block: ``norm1``, then ``attn`` (the attention kinds and
+    ``moe``) or ``mixer`` (``rglru``, ``mamba2``); behind ``norm2`` the
+    routed ``moe`` FFN, or with ``d_ff`` an FFN (not for ``mamba2``)."""
 
     def __init__(self, norm1: L.RMSNorm, attn: L.Attention | None,
                  norm2: L.RMSNorm | None = None, ffn: L.FFN | None = None,
-                 mixer: SSM.RGLRU | None = None):
+                 mixer: SSM.RGLRU | SSM.Mamba2 | None = None, moe: MOE.MoE | None = None):
         super().__init__()
         self.norm1, self.attn, self.mixer, self.norm2, self.ffn = norm1, attn, mixer, norm2, ffn
+        self.moe = moe
 
 
 class DecoderLM(nn.Module):
@@ -121,10 +147,15 @@ def init_block(gen, cfg: ModelConfig, kind: str, device=None) -> Block:
     dt = cfg.param_dtype
     norm1 = L.init_rms_norm(cfg.d_model, dt, device)
     attn = mixer = None
+    if kind == "mamba2":  # the mamba2 stack has no separate FFN (d_ff == 0)
+        return Block(norm1, None, mixer=SSM.init_mamba(gen, _mamba_spec(cfg), dt, device))
     if kind == "rglru":
         mixer = SSM.init_rglru(gen, _rglru_spec(cfg), dt, device)
     else:
         attn = L.init_attention(gen, _attn_spec(cfg, kind == "attn_local"), dt, device)
+    if kind == "moe":
+        return Block(norm1, attn, L.init_rms_norm(cfg.d_model, dt, device),
+                     moe=MOE.init_moe(gen, _moe_spec(cfg), dt, device))
     if not cfg.d_ff:
         return Block(norm1, attn, mixer=mixer)
     return Block(norm1, attn, L.init_rms_norm(cfg.d_model, dt, device),
@@ -149,12 +180,14 @@ def block_fwd(p: Block, cfg: ModelConfig, kind: str, x, positions, want_cache: b
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rms_norm(p.norm1, x, cfg.norm_eps)
     cache = None
-    if kind == "rglru":
+    if kind in ("rglru", "mamba2"):
+        prefill, spec = (SSM.rglru_prefill, _rglru_spec(cfg)) if kind == "rglru" \
+            else (SSM.mamba_prefill, _mamba_spec(cfg))
         if want_cache:
-            y, (state, conv) = SSM.rglru_prefill(p.mixer, _rglru_spec(cfg), h, True)
+            y, (state, conv) = prefill(p.mixer, spec, h, True)
             cache = {"state": state, "conv": conv}
         else:
-            y = SSM.rglru_prefill(p.mixer, _rglru_spec(cfg), h)
+            y = prefill(p.mixer, spec, h)
     else:
         spec = _attn_spec(cfg, kind == "attn_local")
         if want_cache:
@@ -164,6 +197,9 @@ def block_fwd(p: Block, cfg: ModelConfig, kind: str, x, positions, want_cache: b
         else:
             y = L.mha(p.attn, spec, h, positions)
     x = x + y
+    if kind == "moe":
+        y2, aux = MOE.moe_ffn(p.moe, _moe_spec(cfg), L.rms_norm(p.norm2, x, cfg.norm_eps))
+        return x + y2, cache, aux
     if p.ffn is not None:
         x = x + L.ffn(p.ffn, L.rms_norm(p.norm2, x, cfg.norm_eps), cfg.act)
     return x, cache, aux
@@ -198,15 +234,21 @@ def block_decode(p: Block, cfg: ModelConfig, kind: str, x, cache, pos: int):
     in place."""
     check_kind(kind)
     h = L.rms_norm(p.norm1, x, cfg.norm_eps)
-    if kind == "attn_global":
+    if kind in ("attn_global", "moe"):
         y, ck, cv = L.mha_decode(p.attn, _attn_spec(cfg, False), h, cache["k"], cache["v"], pos)
         cache = {"k": ck, "v": cv}
     elif kind == "attn_local":
         y, cache = _local_decode(p.attn, cfg, h, cache, pos)
+    elif kind == "mamba2":
+        y, st, cv = SSM.mamba_decode(p.mixer, _mamba_spec(cfg), h, cache["state"], cache["conv"])
+        cache = {"state": st, "conv": cv}
     else:
         y, st, cv = SSM.rglru_decode(p.mixer, _rglru_spec(cfg), h, cache["state"], cache["conv"])
         cache = {"state": st, "conv": cv}
     x = x + y
+    if kind == "moe":
+        y2, _ = MOE.moe_ffn(p.moe, _moe_spec(cfg), L.rms_norm(p.norm2, x, cfg.norm_eps))
+        return x + y2, cache
     if p.ffn is not None:
         x = x + L.ffn(p.ffn, L.rms_norm(p.norm2, x, cfg.norm_eps), cfg.act)
     return x, cache
@@ -250,13 +292,19 @@ def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, smax: int, dtype):
     """``TensorSpec`` tree of one block's decode cache."""
     check_kind(kind)
     kv_dt = torch.int8 if cfg.kv_cache_quant else dtype
-    if kind == "attn_global":
+    if kind in ("attn_global", "moe"):
         shp = (batch, smax, cfg.n_kv_heads, cfg.resolved_head_dim)
         return {"k": TensorSpec(shp, kv_dt), "v": TensorSpec(shp, kv_dt)}
     if kind == "attn_local":
         w = cfg.window
         shp = (batch, w, cfg.n_kv_heads, cfg.resolved_head_dim)
         return {"k": TensorSpec(shp, kv_dt), "v": TensorSpec(shp, kv_dt), "pos_idx": TensorSpec((w,), torch.int32)}
+    if kind == "mamba2":
+        s = _mamba_spec(cfg)
+        return {
+            "state": TensorSpec((batch, s.n_heads, s.d_state, s.head_dim), torch.float32),
+            "conv": TensorSpec((batch, s.d_conv - 1, s.conv_channels), cfg.param_dtype),
+        }
     s = _rglru_spec(cfg)
     return {
         "state": TensorSpec((batch, s.width), torch.float32),

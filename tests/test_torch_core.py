@@ -107,7 +107,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import sys, repro_torch, repro_torch.checkpoint, repro_torch.core, chip_smoke\n"
         "import repro_torch.configs, repro_torch.models.convert, repro_torch.serving, repro_torch.launch.serve\n"
         "import repro_torch.kernels.flash_attn, repro_torch.train, repro_torch.optim, repro_torch.data\n"
-        "import repro_torch.launch.train\n"
+        "import repro_torch.launch.train, repro_torch.models.moe, repro_torch.models.encdec\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

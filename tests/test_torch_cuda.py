@@ -14,6 +14,7 @@ limit scales with the data, so it still bites on the late rows of long
 causal inputs, whose elements are small.
 """
 
+import copy
 import dataclasses
 import sys
 from pathlib import Path
@@ -424,6 +425,90 @@ def test_gemma3_prefill_on_card_launches_windowed_kernels_on_local_layers(cuda, 
         else:  # as in test_decoder_prefill_on_card_launches_the_kernel_per_layer
             assert _rel_rms(got, exp) <= tol
     assert torch.equal(caches[0][0]["pos_idx"].cpu(), ref_caches[0][0]["pos_idx"])
+
+
+@pytest.mark.cuda
+def test_moe_prefill_on_card_launches_the_kernel_per_layer(cuda):
+    """Qwen1.5-MoE at reduced width and depth in float32 (2 layers of
+    attention + 4 experts top-2 + a shared FFN, 16 / 16 heads as the full
+    model): one flash launch a layer, none a decode step; the routing's
+    expert ids equal the CPU's, and so do the logits, caches and a decode
+    step within 2e-4."""
+    from repro_torch.models import build_model
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b").reduced(), attn_impl="chunked", n_kv_heads=4,
+                              param_dtype=torch.float32, moe_group=32)
+    m, m_cpu = build_model(cfg), build_model(cfg, device="cpu")
+    params = m.init(0)
+    params_cpu = copy.deepcopy(params).to("cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 96)).astype(np.int32)
+    nxt = torch.from_numpy(toks[:, :1].copy())
+    before = flash_attention_cuda.launches
+    with chip_smoke.recorded_routing() as card_ids:
+        logits, caches = m.prefill(params, {"tokens": torch.from_numpy(toks).to(cuda)}, cache_len=100)
+        assert flash_attention_cuda.launches == before + cfg.n_layers
+        logits2, _ = m.decode_step(params, caches, nxt.to(cuda), 96)
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    with chip_smoke.recorded_routing() as cpu_ids:
+        ref, ref_caches = m_cpu.prefill(params_cpu, {"tokens": torch.from_numpy(toks)}, cache_len=100)
+        ref2, _ = m_cpu.decode_step(params_cpu, ref_caches, nxt, 96)
+    assert len(card_ids) == len(cpu_ids) == 2 * cfg.n_layers
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card_ids, cpu_ids))
+    check = chip_smoke.moe_layer0_check(params, cfg, torch.from_numpy(toks).to(cuda))
+    assert check["expert_ids_equal"] and check["rel_err"] < 2e-4, check
+    for got, exp in ((logits, ref), (caches[0][0]["k"], ref_caches[0][0]["k"]), (logits2, ref2)):
+        torch.testing.assert_close(got.cpu(), exp, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "whisper-tiny"])
+def test_mamba2_and_whisper_on_card_match_cpu(cuda, arch, dtype):
+    """Reduced Mamba2 (chunk 8) and Whisper on the card against the CPU:
+    a prefill (over frame embeddings for Whisper), its caches, and decode
+    steps on them; no flash launch. bf16 is held in RMS over the tensor, as
+    test_decoder_prefill_on_card_launches_the_kernel_per_layer does."""
+    from repro_torch.models import build_model
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype=dtype)
+    m, m_cpu = build_model(cfg), build_model(cfg, device="cpu")
+    params = m.init(0)
+    params_cpu = copy.deepcopy(params).to("cpu")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 48)).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)).to(dtype)
+    extra = {"frames": frames} if cfg.enc_dec else {}
+    card = chip_smoke.family_traffic(m, params, toks.to(cuda), 40, 48,
+                                     **{k: v.to(cuda) for k, v in extra.items()})
+    assert card["flash_launches"] == {"prefill": 0, "prefill_windowed": 0, "decode": 0}
+    cpu = chip_smoke.family_traffic(m_cpu, params_cpu, toks, 40, 48, **extra)
+    tol = _TOL[dtype]
+    got_leaves = [t for t in _cache_leaves(card["caches"])]
+    exp_leaves = [t for t in _cache_leaves(cpu["caches"])]
+    assert [tuple(t.shape) for t in got_leaves] == [tuple(t.shape) for t in exp_leaves]
+    for got, exp in zip(got_leaves, exp_leaves):
+        got, exp = got.cpu().float(), exp.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, exp, rtol=tol, atol=tol)
+        else:
+            assert _rel_rms(got, exp) <= tol
+    limit = chip_smoke.DECODE_REL_LIMIT["float32" if dtype == torch.float32 else "bfloat16"]
+    assert card["decode_vs_prefill_rel_err"] < limit and cpu["decode_vs_prefill_rel_err"] < limit
+
+
+def _cache_leaves(tree):
+    """The tensors of a nested tuple / dict cache tree, in key order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _cache_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _cache_leaves(v)]
+    return [] if tree is None else [tree]
 
 
 @pytest.mark.cuda

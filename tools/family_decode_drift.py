@@ -122,7 +122,7 @@ def run(arch: str, dtype, seed: int, edits=()) -> dict:
     tokens = torch.randint(0, cfg.vocab, (1, chip_smoke.PREFILL_CACHE), generator=gen, device=gen.device)
     with patched(edits):
         traffic = chip_smoke.family_traffic(model, params, tokens, chip_smoke.PREFILL_TOKENS, chip_smoke.PREFILL_CACHE)
-    del traffic["caches"], model, params, tokens
+    del traffic["caches"], traffic["logits"], model, params, tokens
     gc.collect()
     torch.cuda.empty_cache()
     return traffic
