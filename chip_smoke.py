@@ -3,7 +3,8 @@
 save, training with dedup checkpoints at the full width of
 LLaVA-NeXT-Mistral-7B, Qwen2.5-32B prefill and prefix-cache serving at
 full width, the sliding-window families (Gemma3-12B, RecurrentGemma-2B),
-and Qwen1.5-MoE-A2.7B, Mamba2-1.3B and Whisper-tiny at full width.
+Qwen1.5-MoE-A2.7B, Mamba2-1.3B and Whisper-tiny, and MiniCPM3-4B's
+multi-head latent attention at full width.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -66,7 +67,8 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    ``scaled_dot_product_attention`` (timed only). The bf16 kernel,
    ``flash_fwd_wgmma``, must be among the prefill profile's five largest
    kernels, take at most twice SDPA's time, and spill no registers at any
-   of its four head dims, nor may ``flash_fwd_simt<float, 256>`` (their
+   of its five pairs of head dims, nor may ``flash_fwd_simt<float, 256,
+   256>`` and ``flash_fwd_simt<float, 96, 64>`` (their
    registers from ``cuobjdump -res-usage``, its TFLOP/s and its nvcc
    seconds, null when the library was already built, go into its row);
 7. the serving path at full width: ``BatchedServer`` on the same model over
@@ -108,7 +110,20 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    prompt, self caches padded to 448, 8 decode steps, a fresh prefill of
    448 (within 0.05). Neither launches the flash kernel. Mamba2's bf16
    error is reported only: bf16 rounding over 48 layers and 128 steps puts
-   it at 0.05-0.07 by seed; the float32 runs are the checks.
+   it at 0.05-0.07 by seed; the float32 runs are the checks;
+10. multi-head latent attention at full width: MiniCPM3-4B (62 layers,
+   40 heads, q rank 768, kv rank 256, qk head dim 64 + 32 rope, v head dim
+   64; 4.07 B parameters), ``attn_impl="chunked"``, bf16, random weights
+   from ``--seed``, alone on the card. ``family_traffic``: prefill 8,192
+   tokens into 8,200-slot latent caches (62 flash launches at qk head dim
+   96 and v head dim 64), 8 teacher-forced absorbed decode steps (none),
+   the last decode logits within 0.05 of a fresh 8,200-token prefill;
+   the prefill profiled. The flash kernel at layer 0's own inputs (q and
+   k (1, 8192, 40, 96), v (1, 8192, 40, 64), causal) in bf16 and float32
+   against the plain version, timed beside it and beside
+   ``scaled_dot_product_attention``. Then the same traffic on the model
+   in float32 (16.3 GB), within 2e-4. The phase must leave nothing
+   allocated.
 
 It prints ``main_path``, ``train``, ``prefill``, ``serving`` and ``family``
 JSON lines, a ``kernels`` JSON line, the card's name and power limit from nvidia-smi, and
@@ -177,6 +192,9 @@ TRAIN_ACCUM = 2
 PREFILL_TOKENS = 8192
 PREFILL_CACHE = 8200
 DECODE_TOKENS = 8
+# The float32 flash instances that must spill nothing, beside every bf16
+# one: the largest (hd 256) and MLA's (qk 96, v 64).
+SIMT_NO_SPILL = ("flash_fwd_simt<256, 256>", "flash_fwd_simt<96, 64>")
 _INT_ALU = {"IMAD", "VIADD", "IADD3", "IADD", "SHF", "SHL", "SHR", "LOP3", "LEA", "IMUL", "PRMT"}
 
 
@@ -211,15 +229,17 @@ def sass_ops_per_word(sass: str, func: str) -> tuple[float, float]:
 
 def res_usage(text: str) -> dict[str, dict]:
     """Registers, stack and local (spill) bytes per thread of each kernel in
-    ``cuobjdump -res-usage`` text, keyed ``name<hd>`` from the mangled name
-    (``flash_fwd_wgmma<128>``)."""
+    ``cuobjdump -res-usage`` text, keyed ``name<dims>`` by its integer
+    template arguments from the mangled name (``flash_fwd_wgmma<96, 64>``,
+    ``flash_fwd_simt<256, 256>``)."""
     out = {}
     for fn, reg, stack, local in re.findall(
         r"Function ([^\s:]+):\s*REG:(\d+)\s+STACK:(\d+)\s+SHARED:\d+\s+LOCAL:(\d+)", text
     ):
-        name = re.search(r"\d+([a-z_]+)I(?:f)?Li(\d+)E", fn)
+        name = re.search(r"\d+([a-z_]+)I(?:f)?((?:Li\d+E)+)", fn)
         if name:
-            out[f"{name.group(1)}<{name.group(2)}>"] = {
+            dims = ", ".join(re.findall(r"Li(\d+)E", name.group(2)))
+            out[f"{name.group(1)}<{dims}>"] = {
                 "registers": int(reg), "stack_bytes": int(stack), "local_bytes": int(local),
             }
     return out
@@ -949,13 +969,15 @@ def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def flash_bound_ms(q, k, causal: bool, window: int) -> tuple[float, float]:
-    """(operations, bytes) lower bounds in ms of one flash call: 4 * hd FLOP
-    per visible pair and query head over the bf16 tensor-core peak; q, k, v
-    read once and the output written once over the HBM rate."""
-    b, sq, h, hd = q.shape
-    flop = 4 * b * h * hd * attention_pairs(sq, k.shape[1], causal, window)
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+def flash_bound_ms(q, k, v, causal: bool, window: int) -> tuple[float, float]:
+    """(operations, bytes) lower bounds in ms of one flash call: 2 * (dqk +
+    dv) FLOP per visible pair and query head (q.k and p.v) over the bf16
+    tensor-core peak; q, k, v read once and the (B, Sq, H, dv) output
+    written once over the HBM rate."""
+    b, sq, h, dqk = q.shape
+    dv = v.shape[-1]
+    flop = 2 * (dqk + dv) * b * h * attention_pairs(sq, k.shape[1], causal, window)
+    nbytes = (q.numel() + k.numel() + v.numel() + b * sq * h * dv) * q.element_size()
     return flop / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -1211,7 +1233,7 @@ def prefill_phase(model, params, check: FlashCheck, gen) -> tuple[dict, dict]:
     plain_ms = _timed(lambda: flash_attention_plain(q, k, v), 2)
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     library_ms = _timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 5)
-    ops_ms, bytes_ms = flash_bound_ms(q, k, True, 0)
+    ops_ms, bytes_ms = flash_bound_ms(q, k, v, True, 0)
     del q, k, v, qt, kt, vt
     _check(any("flash_fwd_wgmma" in name for name, _, _ in prefill_profile["top"]),
            f"flash_fwd_wgmma is not among the prefill's top kernels: {prefill_profile['top']}")
@@ -1220,9 +1242,10 @@ def prefill_phase(model, params, check: FlashCheck, gen) -> tuple[dict, dict]:
         [str(Path(_build._nvcc()).parent / "cuobjdump"), "-res-usage", str(_build._lib_path("flash_attn"))],
         capture_output=True, text=True, check=True,
     ).stdout
-    regs = {k: r for k, r in res_usage(usage).items() if "wgmma" in k or k == "flash_fwd_simt<256>"}
-    _check(len(regs) == 5 and all(r["stack_bytes"] == r["local_bytes"] == 0 for r in regs.values()),
-           f"flash_fwd_wgmma's resource usage (4 head dims) and flash_fwd_simt<256>'s: no stack or local memory: {regs}")
+    regs = {k: r for k, r in res_usage(usage).items() if "wgmma" in k or k in SIMT_NO_SPILL}
+    _check(len(regs) == 5 + len(SIMT_NO_SPILL) and all(r["stack_bytes"] == r["local_bytes"] == 0 for r in regs.values()),
+           f"flash_fwd_wgmma's resource usage (5 pairs of head dims) and {SIMT_NO_SPILL}'s: no stack or local "
+           f"memory: {regs}")
 
     weight_bytes = sum(p.numel() * p.element_size() for n, p in params.named_parameters() if not n.startswith("embed"))
     kv_bytes = 2 * cfg.n_layers * PREFILL_CACHE * cfg.n_kv_heads * cfg.resolved_head_dim * 2
@@ -1489,7 +1512,7 @@ def flash_entry(check: FlashCheck, q, k, v, window: int, shape: str) -> dict:
     ms = _timed(lambda: flash_attention_cuda(q, k, v, window=window), 5)
     plain_ms = _timed(lambda: flash_attention_plain(q, k, v, window=window), 2)
     library_ms, backend = library_attention_ms(q, k, v, window)
-    ops_ms, bytes_ms = flash_bound_ms(q, k, True, window)
+    ops_ms, bytes_ms = flash_bound_ms(q, k, v, True, window)
     return {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -1897,6 +1920,101 @@ def whisper_phase(gen) -> dict:
     return line
 
 
+# Phase 10: MiniCPM3-4B (src/repro/configs/minicpm3_4b.py, HF
+# openbmb/MiniCPM3-4B), multi-head latent attention at full width and depth.
+MLA_ARCH = "minicpm3-4b"
+
+
+def mla_layer0_qkv(params, cfg, tokens):
+    """Layer 0's flash inputs at the prefill's shape, as ``mla_prefill``
+    makes them from the embedded tokens: q (B, S, H, qk) of the nope and
+    rope queries, k (B, S, H, qk) of the expanded nope keys and the shared
+    rope key, v (B, S, H, v_head_dim)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import mla as MLA
+    from repro_torch.models import transformer as T
+
+    blk, s = params.blocks[0], T._mla_spec(cfg)
+    b, sl = tokens.shape
+    with torch.no_grad():
+        h = L.rms_norm(blk.norm1, L.embed(params.embed, tokens), cfg.norm_eps)
+        positions = torch.arange(sl, device=tokens.device).expand(b, sl)
+        c_kv, k_rope = MLA._latents(blk.attn, s, h, positions)
+        q_nope, q_rope = MLA._queries(blk.attn, s, h, positions)
+        k_nope = L.dense(blk.attn.w_uk, c_kv).reshape(b, sl, s.n_heads, s.qk_nope_head_dim)
+        v = L.dense(blk.attn.w_uv, c_kv).reshape(b, sl, s.n_heads, s.v_head_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b, sl, s.n_heads, s.qk_rope_head_dim)], dim=-1)
+    return q, k, v
+
+
+def mla_phase(check: FlashCheck, gen) -> tuple[dict, dict]:
+    """Phase 10, MiniCPM3-4B: full width, all 62 layers, bf16,
+    ``attn_impl="chunked"``, random weights from ``gen``. ``family_traffic``
+    at the prefill phase's size (62 flash launches a prefill at head dims
+    (96, 64), 0 a decode step, the absorbed decode within 0.05 of the fresh
+    prefill); its prefill profiled; the flash kernel at layer 0's inputs.
+    Then the same traffic on the model in float32, within 2e-4. Returns the
+    ``family`` line and the kernel's entry for the ``kernels`` line."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    _warm_cublas()
+    _free()
+    mem_before = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config(MLA_ARCH), attn_impl="chunked")
+    model, params, init_s = _model_on_card(cfg, gen)
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_CACHE), generator=gen, device=model.device)
+    torch.cuda.reset_peak_memory_stats()
+    traffic = family_traffic(model, params, tokens, PREFILL_TOKENS, PREFILL_CACHE)
+    peak = torch.cuda.max_memory_allocated()
+    check_family_traffic(MLA_ARCH, traffic, cfg.n_layers, 0, "bfloat16")
+    caches = traffic.pop("caches")[0][0]
+    shapes = {n: tuple(t.shape) for n, t in caches.items()}
+    _check(shapes == {"ckv": (cfg.n_layers, 1, PREFILL_CACHE, cfg.kv_lora_rank),
+                      "kr": (cfg.n_layers, 1, PREFILL_CACHE, cfg.qk_rope_head_dim)},
+           f"{MLA_ARCH}: latent caches {shapes}")
+    del traffic["logits"], caches
+    prof, flash_ms = _prefill_profile(
+        lambda: model.prefill(params, {"tokens": tokens[:, :PREFILL_TOKENS]}, cache_len=PREFILL_CACHE))
+    _free()
+    q, k, v = mla_layer0_qkv(params, cfg, tokens[:, :PREFILL_TOKENS])
+    shape = f"{MLA_ARCH} q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}, causal"
+    entry = {shape: {**flash_entry(check, q, k, v, 0, shape),
+                     "launches_per_prefill": traffic["flash_launches"]["prefill"]}}
+    del q, k, v
+    layer_params = sum(p.numel() for p in params.blocks.parameters())
+    qk, vd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    attn_flop = cfg.n_layers * 2 * (qk + vd) * cfg.n_heads * attention_pairs(PREFILL_TOKENS, PREFILL_TOKENS, True, 0)
+    line = {
+        "model": f"{MLA_ARCH}, attn_impl chunked, {cfg.n_layers} layers, {cfg.param_dtype}, random weights",
+        "parameters": sum(p.numel() for p in params.parameters()), "init_s": init_s,
+        "tokens": PREFILL_TOKENS, "cache_len": PREFILL_CACHE, "batch": 1,
+        "head_dims": {"qk": qk, "v": vd}, **traffic, "latent_cache_shapes": shapes,
+        "peak_memory_bytes": peak, "weight_bytes": weight_bytes,
+        "prefill_floor_s": (2 * layer_params * PREFILL_TOKENS + attn_flop) / BF16_FLOP_PER_S,
+        # a decode step reads every weight once, the tied embedding included
+        "decode_floor_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "profile_prefill": prof, "prefill_flash_device_ms": flash_ms,
+        "prefill_flash_share": None if not prof["device_ms"] else flash_ms / prof["device_ms"],
+    }
+    del model, params, traffic
+    _free()
+
+    model, params, _ = _model_on_card(dataclasses.replace(cfg, param_dtype=torch.float32), gen)
+    traffic = family_traffic(model, params, tokens, PREFILL_TOKENS, PREFILL_CACHE)
+    del traffic["caches"], traffic["logits"], model, params, tokens
+    check_family_traffic(MLA_ARCH, traffic, cfg.n_layers, 0, "float32")
+    line["float32"] = traffic
+    _free()
+    line["left_allocated_bytes"] = torch.cuda.memory_allocated() - mem_before
+    return line, entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1996,6 +2114,12 @@ def main() -> int:
         print("family " + json.dumps(line))
     for line in lines:
         _check(line["left_allocated_bytes"] == 0, f"{line['model']} left {line['left_allocated_bytes']} B on the card")
+
+    # ------------------- 10. multi-head latent attention at full width
+    line, flash_row["mla"] = mla_phase(check, gen)
+    print("family " + json.dumps(line))
+    _check(line["left_allocated_bytes"] == 0, f"{line['model']} left {line['left_allocated_bytes']} B on the card")
+    flash_row["launches_by_path"][f"{MLA_ARCH} prefill"] = line["flash_launches"]["prefill"]
     flash_row.update(mismatches=check.mismatches, cases=check.cases, max_abs_err=max(check.max_abs_err.values()),
                      max_abs_err_by_dtype=check.max_abs_err, max_err_ratio=check.max_err_ratio)
     rows_out.append(flash_row)

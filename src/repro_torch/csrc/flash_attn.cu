@@ -1,6 +1,9 @@
-// Forward flash attention for Hopper (sm_90a): q (B, Sq, H, hd) against
-// k, v (B, Skv, K, hd), GQA, causal and sliding-window masks, fp32 online
-// softmax, output (B, Sq, H, hd) in q's dtype.
+// Forward flash attention for Hopper (sm_90a): q (B, Sq, H, dqk) against
+// k (B, Skv, K, dqk) and v (B, Skv, K, dv), GQA, causal and sliding-window
+// masks, fp32 online softmax, output (B, Sq, H, dv) in q's dtype. The head
+// dims come in the pairs (dqk, dv) it is built for: (32, 32), (64, 64),
+// (128, 128), (256, 256) and MLA's (96, 64) (MiniCPM3: 64 nope + 32 rope
+// dims of q and k, 64 of v).
 //
 // Replaces: src/repro/kernels/flash_attn.py::_flash_kernel (the Pallas TPU
 // kernel behind flash_attention_pallas). Same function: query head h reads
@@ -10,7 +13,7 @@
 // exp(-inf - -inf) out of the sums.
 //
 // What bounds it on this card: operations. Per (query, visible key) pair
-// it does 4 * hd FLOP (q.k and p.v) and reads each q, k, v element once
+// it does 2 * (dqk + dv) FLOP (q.k and p.v) and reads each q, k, v element once
 // from device memory; at the prefill's shape (Sq = Skv = 8192, H 40, K 8,
 // hd 128, causal) that is ~6.9e11 FLOP against ~0.2 GB, i.e. ~0.69 ms at
 // the 989 TFLOP/s bf16 tensor-core peak against ~0.06 ms of HBM traffic.
@@ -34,8 +37,10 @@
 //    fragments (P never touches shared memory) and V read in its natural
 //    (Skv, hd) layout as an MN-major B operand (the transpose bit). Shared
 //    tiles are stored in panels 64 elements wide with the 128-byte swizzle
-//    (hd 64 and up; hd 32, whose rows are 64 bytes, takes the 64-byte
-//    swizzle); the TMA maps and the wgmma descriptors agree on it. Each
+//    (head dims that are multiples of 64) or 32 wide with the 64-byte
+//    swizzle (hd 32, whose rows are 64 bytes, and MLA's qk head dim 96,
+//    whose 192-byte rows are three such panels); the TMA maps and the
+//    wgmma descriptors agree on it. Q and K take the panels of dqk, V of dv. Each
 //    (consumer, KV tile) pair is skipped, full (no mask) or an edge (masked
 //    in int32: the diagonal, the window edge, the ragged end, where TMA's
 //    zero rows must not count), and exp2f takes scale * log2(e) folded in.
@@ -46,8 +51,8 @@
 //    a consumer thread; 64 rows take 1 + 64 + 128 KB and 128 + 32 + 16.
 //  - fp32: flash_fwd_simt, scalar fp32 FMA (the tensor cores' TF32 would
 //    not hold the fp32 tolerance). 4 threads per query row (8 at hd 256),
-//    each owning a slice of 32 or fewer head-dim elements; partial dot
-//    products meet by warp shuffles.
+//    each owning a slice of 32 or fewer of q's and of the output's
+//    head-dim elements; partial dot products meet by warp shuffles.
 
 #include <cstdint>
 #include <cuda.h>
@@ -71,11 +76,11 @@ struct Args {
   int64_t window;
 };
 
-// The fp32 kernel's geometry at head dim HD: kParts threads per query row
-// (so a thread holds at most 32 of q's and of the output's elements), kRows
-// query rows per block of 256 threads, K/V tiles of kBN rows (32 at hd 256,
-// where a thread's 64 scores of a 64-row tile would not fit in registers
-// beside its 64 elements of q and of the output).
+// The fp32 kernel's geometry at qk head dim HD: kParts threads per query
+// row (so a thread holds at most 32 of q's and of the output's elements),
+// kRows query rows per block of 256 threads, K/V tiles of kBN rows (32 at
+// hd 256, where a thread's 64 scores of a 64-row tile would not fit in
+// registers beside its 64 elements of q and of the output).
 template <int HD>
 struct Simt {
   static constexpr int kParts = HD > 128 ? 8 : 4;
@@ -103,42 +108,40 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 
 // ------------------------------------------------------------ fp32: SIMT --
-template <typename T, int HD>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(256) flash_fwd_simt(Args a) {
-  constexpr int kThreads = 256, kParts = Simt<HD>::kParts, kDpt = HD / kParts, kBN = Simt<HD>::kBN;
+  constexpr int kThreads = 256, kParts = Simt<DQK>::kParts, kBN = Simt<DQK>::kBN;
+  constexpr int kDpt = DQK / kParts, kDptV = DV / kParts;  // q's and the output's elements a thread holds
+  static_assert(DQK % kParts == 0 && DV % kParts == 0, "head dims split over kParts threads");
   extern __shared__ float smem_f[];
-  float* Ks = smem_f;              // [kBN][HD]
-  float* Vs = smem_f + kBN * HD;   // [kBN][HD]
+  float* Ks = smem_f;               // [kBN][DQK]
+  float* Vs = smem_f + kBN * DQK;   // [kBN][DV]
   const int tid = threadIdx.x, r = tid / kParts, part = tid % kParts;
   const int64_t qt = int64_t(gridDim.x) - 1 - blockIdx.x;  // heavy tiles first
   const int64_t b = blockIdx.y / a.H, h = blockIdx.y % a.H, kvh = h / (a.H / a.KH);
-  const int64_t q0 = qt * Simt<HD>::kRows, qpos = q0 + r;
+  const int64_t q0 = qt * Simt<DQK>::kRows, qpos = q0 + r;
   const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
   const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
-  float qr[kDpt], acc[kDpt];
+  float qr[kDpt], acc[kDptV];
 #pragma unroll
-  for (int i = 0; i < kDpt; ++i) {
-    qr[i] = qpos < a.Sq ? to_f(qp[qpos * a.q_ss + part + kParts * i]) * a.scale : 0.f;
-    acc[i] = 0.f;
-  }
+  for (int i = 0; i < kDpt; ++i) qr[i] = qpos < a.Sq ? to_f(qp[qpos * a.q_ss + part + kParts * i]) * a.scale : 0.f;
+#pragma unroll
+  for (int i = 0; i < kDptV; ++i) acc[i] = 0.f;
   float m = -INFINITY, l = 0.f;
   int64_t t_lo, t_hi;
-  tile_range(a, q0, Simt<HD>::kRows, kBN, &t_lo, &t_hi);
+  tile_range(a, q0, Simt<DQK>::kRows, kBN, &t_lo, &t_hi);
   for (int64_t t = t_lo; t < t_hi; ++t) {
     const int64_t kv0 = t * kBN;
     __syncthreads();
-    for (int e = tid; e < kBN * HD; e += kThreads) {
-      const int c = e / HD, d = e % HD;
-      const int64_t kpos = kv0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (kpos < a.Skv) {
-        kx = to_f(kp[kpos * a.k_ss + d]);
-        vx = to_f(vp[kpos * a.v_ss + d]);
-      }
-      Ks[e] = kx;
-      Vs[e] = vx;
+    for (int e = tid; e < kBN * DQK; e += kThreads) {
+      const int64_t kpos = kv0 + e / DQK;
+      Ks[e] = kpos < a.Skv ? to_f(kp[kpos * a.k_ss + e % DQK]) : 0.f;
+    }
+    for (int e = tid; e < kBN * DV; e += kThreads) {
+      const int64_t kpos = kv0 + e / DV;
+      Vs[e] = kpos < a.Skv ? to_f(vp[kpos * a.v_ss + e % DV]) : 0.f;
     }
     __syncthreads();
     float s[kBN];
@@ -146,7 +149,7 @@ __global__ void __launch_bounds__(256) flash_fwd_simt(Args a) {
     for (int c = 0; c < kBN; ++c) {
       float x = 0.f;
 #pragma unroll
-      for (int i = 0; i < kDpt; ++i) x = fmaf(qr[i], Ks[c * HD + part + kParts * i], x);
+      for (int i = 0; i < kDpt; ++i) x = fmaf(qr[i], Ks[c * DQK + part + kParts * i], x);
       s[c] = x;
     }
     float mx = m;
@@ -167,19 +170,19 @@ __global__ void __launch_bounds__(256) flash_fwd_simt(Args a) {
     }
     l = l * corr + psum;
 #pragma unroll
-    for (int i = 0; i < kDpt; ++i) acc[i] *= corr;
+    for (int i = 0; i < kDptV; ++i) acc[i] *= corr;
 #pragma unroll
     for (int c = 0; c < kBN; ++c) {
 #pragma unroll
-      for (int i = 0; i < kDpt; ++i) acc[i] = fmaf(s[c], Vs[c * HD + part + kParts * i], acc[i]);
+      for (int i = 0; i < kDptV; ++i) acc[i] = fmaf(s[c], Vs[c * DV + part + kParts * i], acc[i]);
     }
     m = mx;
   }
   if (qpos < a.Sq) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* op = static_cast<T*>(a.o) + ((b * a.Sq + qpos) * a.H + h) * HD;
+    T* op = static_cast<T*>(a.o) + ((b * a.Sq + qpos) * a.H + h) * DV;
 #pragma unroll
-    for (int i = 0; i < kDpt; ++i) op[part + kParts * i] = from_f<T>(acc[i] * inv);
+    for (int i = 0; i < kDptV; ++i) op[part + kParts * i] = from_f<T>(acc[i] * inv);
   }
 }
 
@@ -190,8 +193,14 @@ constexpr int kStages = 2;       // K/V ring depth
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 x 40 + 256 x 232 = 384 x 168
 enum { kSkip, kFullTile, kEdge };
 
-// Block and shared-memory geometry at head dim HD. A tile of R rows is kNP
-// panels of R rows x kSW bytes, each panel swizzled over its kSW-byte rows.
+// Block and shared-memory geometry at head dims (DQK, DV). A Q or K tile of
+// R rows is kNP panels of R rows x kSW bytes, each panel swizzled over its
+// kSW-byte rows; a V tile is kNPv panels of kSWv bytes. Panels are 64
+// elements wide (128-byte swizzle) where the head dim is a multiple of 64,
+// else 32 (64-byte swizzle): hd 32, and MLA's qk head dim 96, whose
+// 192-byte rows are wider than the 128-byte swizzle span. At (96, 64) the
+// QK^T product walks 2 k-steps in each of 3 panels, and V and O are the
+// hd-64 instance's.
 // Up to hd 128 a block is three warpgroups: warpgroup 0 produces and hands
 // registers to the consumers (setmaxnreg). ptxas compiles every part of the
 // kernel within the launch's share, 168 registers a thread for 12 warps (3
@@ -201,18 +210,25 @@ enum { kSkip, kFullTile, kEdge };
 // alone (8 warps: 255 registers a thread), and consumer thread 0 issues
 // the loads: the first kStages tiles up front, then each next tile into a
 // stage as soon as both consumers have released it.
-template <int HD>
+template <int DQK, int DV>
 struct Tiling {
-  static constexpr bool kSelfLoad = HD > 128;                // no producer warpgroup
+  static_assert(DQK % 32 == 0 && DV % 32 == 0, "head dims are whole 32-element panels");
+  static constexpr bool kSelfLoad = DQK > 128;               // no producer warpgroup
   static constexpr int kThreads = kSelfLoad ? 256 : 384;
-  static constexpr int kBN = HD <= 128 ? 128 : 64;           // key/value rows per ring stage
-  static constexpr int kPW = HD < 64 ? HD : 64;              // elements per panel row
+  static constexpr int kBN = DQK <= 128 ? 128 : 64;          // key/value rows per ring stage
+  static constexpr int kPW = DQK % 64 ? 32 : 64;             // Q, K: elements per panel row
   static constexpr int kSW = kPW * 2;                        // bytes per panel row = the swizzle span
-  static constexpr int kNP = HD / kPW;                       // panels across the head dim
+  static constexpr int kNP = DQK / kPW;                      // panels across the qk head dim
   static constexpr uint64_t kLayout = kSW == 128 ? 1 : 2;   // wgmma descriptor: 128B / 64B swizzle
-  static constexpr int kQBytes = kBMw * HD * 2;
-  static constexpr int kTileBytes = kBN * HD * 2;            // one K or one V tile
-  static constexpr int kSmem = 1024 + kQBytes + kStages * 2 * kTileBytes;  // + 1024 to align
+  static constexpr int kPWv = DV % 64 ? 32 : 64;             // V: the same, across the v head dim
+  static constexpr int kSWv = kPWv * 2;
+  static constexpr int kNPv = DV / kPWv;
+  static constexpr uint64_t kLayoutV = kSWv == 128 ? 1 : 2;
+  static constexpr int kQBytes = kBMw * DQK * 2;
+  static constexpr int kKBytes = kBN * DQK * 2;              // one K tile
+  static constexpr int kVBytes = kBN * DV * 2;               // one V tile
+  static constexpr int kStageBytes = kKBytes + kVBytes;      // a ring stage: K, then V
+  static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes;  // + 1024 to align
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -393,28 +409,28 @@ __device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
 }
 
 // O += P V for one 64-row consumer: the P fragments pa against the V tile
-// at v_base, 16 kv rows per wgmma. At hd 256 each k-step is two n128
+// at v_base, 16 kv rows per wgmma. At dv 256 each k-step is two n128
 // products: columns 128..255 of O are its elements 64..127 (element e sits
 // at column 8 * (e / 4) + ...), so each half is a contiguous half of o.
-template <int HD>
-__device__ __forceinline__ void pv_product(float (&o)[HD / 2], uint32_t (&pa)[Tiling<HD>::kBN / 16][4],
+template <int DQK, int DV>
+__device__ __forceinline__ void pv_product(float (&o)[DV / 2], uint32_t (&pa)[Tiling<DQK, DV>::kBN / 16][4],
                                            uint32_t v_base) {
-  using T = Tiling<HD>;
+  using T = Tiling<DQK, DV>;
   fence_regs(o);
   fence_regs(pa);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < T::kBN / 16; ++kk) {
-    // MN-major B: 8-row groups along kv at 8 * kSW bytes (SBO), panels of
-    // 64 head-dim columns at kBN * kSW bytes (LBO).
-    const uint64_t db = smem_desc(v_base + kk * 16 * T::kSW, T::kBN * T::kSW, 8 * T::kSW, T::kLayout);
-    if constexpr (HD == 256) {
+    // MN-major B: 8-row groups along kv at 8 * kSWv bytes (SBO), panels of
+    // 64 head-dim columns at kBN * kSWv bytes (LBO).
+    const uint64_t db = smem_desc(v_base + kk * 16 * T::kSWv, T::kBN * T::kSWv, 8 * T::kSWv, T::kLayoutV);
+    if constexpr (DV == 256) {
       const uint64_t db_hi =
-          smem_desc(v_base + 2 * T::kBN * T::kSW + kk * 16 * T::kSW, T::kBN * T::kSW, 8 * T::kSW, T::kLayout);
+          smem_desc(v_base + 2 * T::kBN * T::kSWv + kk * 16 * T::kSWv, T::kBN * T::kSWv, 8 * T::kSWv, T::kLayoutV);
       wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), pa[kk], db);
       wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), pa[kk], db_hi);
-    } else if constexpr (HD == 128) wgmma_rs_n128(o, pa[kk], db);
-    else if constexpr (HD == 64) wgmma_rs_n64(o, pa[kk], db);
+    } else if constexpr (DV == 128) wgmma_rs_n128(o, pa[kk], db);
+    else if constexpr (DV == 64) wgmma_rs_n64(o, pa[kk], db);
     else wgmma_rs_n32(o, pa[kk], db);
   }
   wgmma_commit();
@@ -428,17 +444,17 @@ __device__ __forceinline__ void pv_product(float (&o)[HD / 2], uint32_t (&pa)[Ti
 // consumer and column 8 * (e / 4) + 2 * (lane % 4) + (e % 2), r0 =
 // 16 * warp + lane / 4. kMask masks positions in int32: kv0 is the tile's
 // first key, qrow0 the thread's first query row.
-template <int HD, bool kMask>
-__device__ __forceinline__ void tile_step(float (&o)[HD / 2], float (&m)[2], float (&l)[2], uint32_t q_base,
+template <int DQK, int DV, bool kMask>
+__device__ __forceinline__ void tile_step(float (&o)[DV / 2], float (&m)[2], float (&l)[2], uint32_t q_base,
                                           uint32_t k_base, uint32_t v_base, int kv0, int qrow0, int skv,
                                           int causal, int win, float c) {
-  using T = Tiling<HD>;
+  using T = Tiling<DQK, DV>;
   float s[T::kBN / 2];
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < DQK / 16; ++kk) {
     // K-major A and B: 8-row groups at 8 * kSW bytes (SBO); a k-step moves
-    // 32 bytes along a swizzled row, a panel at every 64 elements.
+    // 32 bytes along a swizzled row, a panel at every kPW elements.
     const int panel = kk * 16 / T::kPW, off = (kk * 16 % T::kPW) * 2;
     const uint64_t da = smem_desc(q_base + panel * kBMw * T::kSW + off, 0, 8 * T::kSW, T::kLayout);
     const uint64_t db = smem_desc(k_base + panel * T::kBN * T::kSW + off, 0, 8 * T::kSW, T::kLayout);
@@ -472,7 +488,7 @@ __device__ __forceinline__ void tile_step(float (&o)[HD / 2], float (&m)[2], flo
     l[i] *= corr;  // l is this lane's partial row sum; lanes meet at the end
     m[i] = mx[i];
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       o[4 * j + 2 * i] *= corr;
       o[4 * j + 2 * i + 1] *= corr;
     }
@@ -490,7 +506,7 @@ __device__ __forceinline__ void tile_step(float (&o)[HD / 2], float (&m)[2], flo
       pa[kk][i] = pack_f(p0, p1);
     }
   }
-  pv_product<HD>(o, pa, v_base);
+  pv_product<DQK, DV>(o, pa, v_base);
 }
 
 // Whether a consumer with query rows [r_lo, r_hi] needs KV tile [kv0,
@@ -525,15 +541,15 @@ __device__ __forceinline__ void walk_kv_tiles(const Args& a, int q0, Visit&& vis
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(Tiling<HD>::kThreads, 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(Tiling<DQK, DV>::kThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, Args a) {
-  using T = Tiling<HD>;
+  using T = Tiling<DQK, DV>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // q, full[kStages], empty[kStages]
   const uint32_t smem_q = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
-  const uint32_t smem_kv = smem_q + T::kQBytes;  // stage s: K at + 2 s kTileBytes, V after it
+  const uint32_t smem_kv = smem_q + T::kQBytes;  // stage s: K at + s kStageBytes, V after it
   const uint32_t bar_q = static_cast<uint32_t>(__cvta_generic_to_shared(bars));
   auto bar_full = [&](int s) { return bar_q + 8 * (1 + s); };
   auto bar_empty = [&](int s) { return bar_q + 8 * (1 + kStages + s); };
@@ -545,12 +561,13 @@ __global__ void __launch_bounds__(Tiling<HD>::kThreads, 1)
   kv_tile_range<T::kBN>(a, q0, &t_lo, &t_hi);
   // TMA of K/V tile t into ring stage `stage`, completing its full barrier.
   auto load_tile = [&](int t, int stage) {
-    mbar_expect_tx(bar_full(stage), 2 * T::kTileBytes);
-    const uint32_t k_dst = smem_kv + stage * 2 * T::kTileBytes;
+    mbar_expect_tx(bar_full(stage), T::kStageBytes);
+    const uint32_t k_dst = smem_kv + stage * T::kStageBytes, v_dst = k_dst + T::kKBytes;
     for (int p = 0; p < T::kNP; ++p) {
       tma_load_4d(k_dst + p * T::kBN * T::kSW, &tk, bar_full(stage), p * T::kPW, kvh, t * T::kBN, b);
-      tma_load_4d(k_dst + T::kTileBytes + p * T::kBN * T::kSW, &tv, bar_full(stage), p * T::kPW, kvh,
-                  t * T::kBN, b);
+    }
+    for (int p = 0; p < T::kNPv; ++p) {
+      tma_load_4d(v_dst + p * T::kBN * T::kSWv, &tv, bar_full(stage), p * T::kPWv, kvh, t * T::kBN, b);
     }
   };
   if (threadIdx.x == 0) {
@@ -595,9 +612,9 @@ __global__ void __launch_bounds__(Tiling<HD>::kThreads, 1)
     const int r_lo = q0 + 64 * c, r_hi = min(r_lo + 63, sq - 1);
     const int qrow0 = r_lo + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);  // and qrow0 + 8
     const uint32_t q_base = smem_q + 64 * c * T::kSW;
-    float o[HD / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float o[DV / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     mbar_wait(bar_q, 0);
     int stage = 0;
     uint32_t phase = 0;
@@ -606,11 +623,11 @@ __global__ void __launch_bounds__(Tiling<HD>::kThreads, 1)
       // must not count toward the stage's previous phase.
       mbar_wait(bar_full(stage), phase);
       const int kv0 = t * T::kBN, kind = tile_kind<T::kBN>(r_lo, r_hi, kv0, skv, causal, win);
-      const uint32_t k_base = smem_kv + stage * 2 * T::kTileBytes, v_base = k_base + T::kTileBytes;
+      const uint32_t k_base = smem_kv + stage * T::kStageBytes, v_base = k_base + T::kKBytes;
       if (kind == kFullTile) {
-        tile_step<HD, false>(o, m, l, q_base, k_base, v_base, kv0, qrow0, skv, causal, win, scale_log2);
+        tile_step<DQK, DV, false>(o, m, l, q_base, k_base, v_base, kv0, qrow0, skv, causal, win, scale_log2);
       } else if (kind == kEdge) {
-        tile_step<HD, true>(o, m, l, q_base, k_base, v_base, kv0, qrow0, skv, causal, win, scale_log2);
+        tile_step<DQK, DV, true>(o, m, l, q_base, k_base, v_base, kv0, qrow0, skv, causal, win, scale_log2);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_empty(stage));
@@ -634,9 +651,9 @@ __global__ void __launch_bounds__(Tiling<HD>::kThreads, 1)
       const int qpos = qrow0 + 8 * i;
       if (qpos >= sq) continue;  // rows past Sq came from TMA's zero fill
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
-      __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o) + ((int64_t(b) * sq + qpos) * a.H + h) * HD + col;
+      __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o) + ((int64_t(b) * sq + qpos) * a.H + h) * DV + col;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
             __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
       }
@@ -687,19 +704,20 @@ bool tensor_map(CUtensorMap* map, const void* base, int64_t hd, int64_t heads, i
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int DQK, int DV>
 cudaError_t launch_wgmma(cudaStream_t s, const Args& a) {
-  using T = Tiling<HD>;
+  using T = Tiling<DQK, DV>;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, a.q, HD, a.H, a.Sq, a.B, a.q_sh, a.q_ss, a.q_sb, T::kPW, kBMw) ||
-      !tensor_map(&tk, a.k, HD, a.KH, a.Skv, a.B, a.k_sh, a.k_ss, a.k_sb, T::kPW, T::kBN) ||
-      !tensor_map(&tv, a.v, HD, a.KH, a.Skv, a.B, a.v_sh, a.v_ss, a.v_sb, T::kPW, T::kBN)) {
+  if (!tensor_map(&tq, a.q, DQK, a.H, a.Sq, a.B, a.q_sh, a.q_ss, a.q_sb, T::kPW, kBMw) ||
+      !tensor_map(&tk, a.k, DQK, a.KH, a.Skv, a.B, a.k_sh, a.k_ss, a.k_sb, T::kPW, T::kBN) ||
+      !tensor_map(&tv, a.v, DV, a.KH, a.Skv, a.B, a.v_sh, a.v_ss, a.v_sb, T::kPWv, T::kBN)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_wgmma<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(a.B * a.H), static_cast<unsigned>((a.Sq + kBMw - 1) / kBMw));
-  flash_fwd_wgmma<HD><<<grid, T::kThreads, T::kSmem, s>>>(tq, tk, tv, a);
+  flash_fwd_wgmma<DQK, DV><<<grid, T::kThreads, T::kSmem, s>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
@@ -713,26 +731,28 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int DQK, int DV>
 cudaError_t dispatch(int dtype, cudaStream_t s, const Args& a) {
-  if (dtype == 1) return launch_wgmma<HD>(s, a);
-  const dim3 grid(static_cast<unsigned>((a.Sq + Simt<HD>::kRows - 1) / Simt<HD>::kRows),
+  if (dtype == 1) return launch_wgmma<DQK, DV>(s, a);
+  const dim3 grid(static_cast<unsigned>((a.Sq + Simt<DQK>::kRows - 1) / Simt<DQK>::kRows),
                   static_cast<unsigned>(a.B * a.H));
-  return launch(flash_fwd_simt<float, HD>, grid, 256, size_t(2) * Simt<HD>::kBN * HD * sizeof(float), s, a);
+  return launch(flash_fwd_simt<float, DQK, DV>, grid, 256, size_t(Simt<DQK>::kBN) * (DQK + DV) * sizeof(float), s,
+                a);
 }
 
 }  // namespace
 
-// q (B, Sq, H, hd), k and v (B, Skv, K, hd) on the device, last dim
-// contiguous, element strides in `strides` (host array: q's b, s, h, then
-// k's, then v's). o: contiguous (B, Sq, H, hd) of q's dtype. dtype 0 is
-// float32, 1 is bfloat16; hd is 32, 64, 128 or 256. bfloat16 goes through TMA:
-// q, k, v 16-byte aligned and every stride of a dim longer than 1 a
-// multiple of 8 elements. Launches on `stream`; returns cudaGetLastError()
-// as an int (cudaErrorInvalidValue, 1, for an unsupported dtype, head dim
-// or layout).
+// q (B, Sq, H, hd), k (B, Skv, K, hd) and v (B, Skv, K, hd_v) on the
+// device, last dim contiguous, element strides in `strides` (host array:
+// q's b, s, h, then k's, then v's). o: contiguous (B, Sq, H, hd_v) of q's
+// dtype. dtype 0 is float32, 1 is bfloat16; (hd, hd_v) is (32, 32), (64,
+// 64), (128, 128), (256, 256) or (96, 64). bfloat16 goes through TMA: q,
+// k, v 16-byte aligned and every stride of a dim longer than 1 a multiple
+// of 8 elements. Launches on `stream`; returns cudaGetLastError() as an
+// int (cudaErrorInvalidValue, 1, for an unsupported dtype, pair of head
+// dims or layout).
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int64_t B,
-                                 int64_t Sq, int64_t Skv, int64_t H, int64_t KH, int64_t hd,
+                                 int64_t Sq, int64_t Skv, int64_t H, int64_t KH, int64_t hd, int64_t hd_v,
                                  const int64_t* strides, float scale, int causal, int64_t window,
                                  int dtype, void* stream) {
   Args a{q, k, v, o, B, Sq, Skv, H, KH,
@@ -740,11 +760,13 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
          strides[6], strides[7], strides[8], scale, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 96 && hd_v == 64) return static_cast<int>(dispatch<96, 64>(dtype, s, a));
+  if (hd != hd_v) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 32: return static_cast<int>(dispatch<32>(dtype, s, a));
-    case 64: return static_cast<int>(dispatch<64>(dtype, s, a));
-    case 128: return static_cast<int>(dispatch<128>(dtype, s, a));
-    case 256: return static_cast<int>(dispatch<256>(dtype, s, a));
+    case 32: return static_cast<int>(dispatch<32, 32>(dtype, s, a));
+    case 64: return static_cast<int>(dispatch<64, 64>(dtype, s, a));
+    case 128: return static_cast<int>(dispatch<128, 128>(dtype, s, a));
+    case 256: return static_cast<int>(dispatch<256, 256>(dtype, s, a));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

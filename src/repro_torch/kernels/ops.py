@@ -58,17 +58,19 @@ def fingerprint_chunks(words: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(
-    q: torch.Tensor,            # (B, Sq, H, hd)
-    k: torch.Tensor,            # (B, Skv, K, hd)
-    v: torch.Tensor,
+    q: torch.Tensor,            # (B, Sq, H, dqk)
+    k: torch.Tensor,            # (B, Skv, K, dqk)
+    v: torch.Tensor,            # (B, Skv, K, dv)
     *,
     causal: bool = True,
     window: int = 0,
 ) -> torch.Tensor:
-    """Fused attention, ``scale = 1/sqrt(hd)``. Returns (B, Sq, H, hd).
+    """Fused attention, ``scale = 1/sqrt(dqk)``. Returns (B, Sq, H, dv).
 
     A CUDA tensor runs the hand-written kernel (``csrc/flash_attn.cu``) or
-    raises; a CPU tensor takes the plain chunked attention. The JAX
+    raises; a CPU tensor takes the plain chunked attention. The kernel
+    takes the (dqk, dv) pairs of ``flash_attn.HEAD_DIMS``: equal head dims
+    32-256, and MLA's (96, 64), where v's head dim is not q's. The JAX
     package's ``use_pallas`` switch and its 24k ``Skv`` cap (a TPU VMEM
     limit) are gone: the kernel streams K/V and takes any length."""
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)

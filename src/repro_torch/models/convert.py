@@ -9,7 +9,8 @@ the module list; for an encoder-decoder config it takes
 ``repro.models.encdec.init_encdec``'s tree and returns an ``EncDecLM``,
 unstacking ``enc_blocks`` and ``dec_blocks`` on their layer axis.
 ``params_to_numpy`` is its inverse. Blocks carry every kind's leaves:
-attention, the RG-LRU and Mamba-2 ``mixer``s, the ``moe`` FFN (``router``,
+attention (MLA's nine leaves for ``mla`` blocks), the RG-LRU and Mamba-2
+``mixer``s, the ``moe`` FFN (``router``,
 the ``(E, D, F)`` / ``(E, F, D)`` expert arrays, ``shared``) and the FFN.
 Dense weights are ``(d_in, d_out)`` in both packages, so nothing is
 transposed.
@@ -32,6 +33,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.encdec import DecBlock, EncDecLM
@@ -66,7 +68,9 @@ def _dense(d: dict, device) -> L.Dense:
     return L.Dense(_tensor(d["w"], device), opt.get("b"), opt.get("w_scale"))
 
 
-def _attn(d: dict, device) -> L.Attention:
+def _attn(d: dict, device) -> "L.Attention | MLA.MLA":
+    if "w_dq" in d:  # an mla block's attention
+        return MLA.MLA(*(_norm(d[n], device) if n in MLA.NORMS else _dense(d[n], device) for n in MLA.LEAVES))
     return L.Attention(*(_dense(d[n], device) for n in _ATTN))
 
 
@@ -164,6 +168,9 @@ def _block_tree(b: "Block | DecBlock") -> dict:
             out[name] = {"scale": _array(mod.scale)}
         elif isinstance(mod, L.Attention):
             out[name] = _module_tree(mod, _ATTN)
+        elif isinstance(mod, MLA.MLA):
+            out[name] = {n: {"scale": _array(getattr(mod, n).scale)} if n in MLA.NORMS
+                         else _dense_tree(getattr(mod, n)) for n in MLA.LEAVES}
         elif isinstance(mod, L.FFN):
             out[name] = _module_tree(mod, _FFN)
         elif isinstance(mod, MOE.MoE):

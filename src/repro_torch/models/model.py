@@ -11,10 +11,10 @@ functions the train loop and the server call:
     cache_specs(shape)                      -> TensorSpec tree
 
 ``loss_fn`` runs with autograd; ``prefill`` and ``decode_step`` run
-without it. Every block kind of the JAX package is ported but ``mla``
-(ROADMAP A4b), which raises ``NotImplementedError``; encoder-decoder
-models (Whisper) take frame embeddings beside their tokens, and their
-``prefill`` takes no ``cache_len``, as in the reference.
+without it. Every block kind of the JAX package is ported, so every
+config of its registry builds; encoder-decoder models (Whisper) take
+frame embeddings beside their tokens, and their ``prefill`` takes no
+``cache_len``, as in the reference.
 """
 
 from __future__ import annotations

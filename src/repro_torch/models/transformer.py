@@ -4,10 +4,10 @@ A port of the JAX package's ``models/transformer.py`` for the block kinds
 ``attn_global`` (global causal attention), ``attn_local`` (sliding-window
 attention with a ring-buffer KV cache of exactly ``window`` slots: Gemma3,
 RecurrentGemma) and ``rglru`` (the RG-LRU recurrence, ``models/ssm.py``:
-RecurrentGemma), each with an FFN when ``d_ff``; ``moe`` (global attention,
+RecurrentGemma) and ``mla`` (multi-head latent attention, ``models/mla.py``:
+MiniCPM3), each with an FFN when ``d_ff``; ``moe`` (global attention,
 then the routed FFN of ``models/moe.py`` behind ``norm2``: Qwen1.5-MoE,
-Llama-4-Scout) and ``mamba2`` (the SSD mixer alone: Mamba2). ``mla``
-raises ``NotImplementedError`` naming its ROADMAP item.
+Llama-4-Scout) and ``mamba2`` (the SSD mixer alone: Mamba2).
 
 The JAX package stacks the parameters of all groups of the repeating
 ``block_pattern`` on a leading axis and scans over them; here the blocks are
@@ -31,12 +31,11 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
-_PORTED = ("attn_global", "attn_local", "moe", "mamba2", "rglru")
-# Block kinds of the JAX package that a later slice ports (ROADMAP queue A).
-_NOT_PORTED = {"mla": "multi-head latent attention, ROADMAP A4b"}
+_PORTED = ("attn_global", "attn_local", "mla", "moe", "mamba2", "rglru")
 
 
 class TensorSpec(NamedTuple):
@@ -58,11 +57,8 @@ def zeros_from_specs(specs, device):
 
 
 def check_kind(kind: str) -> None:
-    if kind in _PORTED:
-        return
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
-    raise ValueError(kind)
+    if kind not in _PORTED:
+        raise ValueError(kind)
 
 
 # ------------------------------------------------------------ block specs --
@@ -75,6 +71,23 @@ def _attn_spec(cfg: ModelConfig, local: bool) -> L.AttnSpec:
         qkv_bias=cfg.qkv_bias,
         window=cfg.window if local else 0,
         rope_theta=cfg.rope_theta,
+        impl=cfg.attn_impl,
+        q_chunk=cfg.attn_q_chunk,
+        kv_chunk=cfg.attn_kv_chunk,
+    )
+
+
+def _mla_spec(cfg: ModelConfig) -> MLA.MLASpec:
+    return MLA.MLASpec(
+        d_model=cfg.d_model,
+        n_heads=cfg.n_heads,
+        q_lora_rank=cfg.q_lora_rank,
+        kv_lora_rank=cfg.kv_lora_rank,
+        qk_nope_head_dim=cfg.qk_nope_head_dim,
+        qk_rope_head_dim=cfg.qk_rope_head_dim,
+        v_head_dim=cfg.v_head_dim,
+        rope_theta=cfg.rope_theta,
+        norm_eps=cfg.norm_eps,
         impl=cfg.attn_impl,
         q_chunk=cfg.attn_q_chunk,
         kv_chunk=cfg.attn_kv_chunk,
@@ -117,10 +130,11 @@ def _rglru_spec(cfg: ModelConfig) -> SSM.RGLRUSpec:
 
 class Block(nn.Module):
     """One block: ``norm1``, then ``attn`` (the attention kinds and
-    ``moe``) or ``mixer`` (``rglru``, ``mamba2``); behind ``norm2`` the
-    routed ``moe`` FFN, or with ``d_ff`` an FFN (not for ``mamba2``)."""
+    ``moe``; an ``MLA`` for ``mla``) or ``mixer`` (``rglru``, ``mamba2``);
+    behind ``norm2`` the routed ``moe`` FFN, or with ``d_ff`` an FFN (not
+    for ``mamba2``)."""
 
-    def __init__(self, norm1: L.RMSNorm, attn: L.Attention | None,
+    def __init__(self, norm1: L.RMSNorm, attn: L.Attention | MLA.MLA | None,
                  norm2: L.RMSNorm | None = None, ffn: L.FFN | None = None,
                  mixer: SSM.RGLRU | SSM.Mamba2 | None = None, moe: MOE.MoE | None = None):
         super().__init__()
@@ -151,6 +165,8 @@ def init_block(gen, cfg: ModelConfig, kind: str, device=None) -> Block:
         return Block(norm1, None, mixer=SSM.init_mamba(gen, _mamba_spec(cfg), dt, device))
     if kind == "rglru":
         mixer = SSM.init_rglru(gen, _rglru_spec(cfg), dt, device)
+    elif kind == "mla":
+        attn = MLA.init_mla(gen, _mla_spec(cfg), dt, device)
     else:
         attn = L.init_attention(gen, _attn_spec(cfg, kind == "attn_local"), dt, device)
     if kind == "moe":
@@ -188,6 +204,15 @@ def block_fwd(p: Block, cfg: ModelConfig, kind: str, x, positions, want_cache: b
             cache = {"state": state, "conv": conv}
         else:
             y = prefill(p.mixer, spec, h)
+    elif kind == "mla":
+        spec = _mla_spec(cfg)
+        sl = x.shape[1]
+        mask = L._attn_mask(sl, sl, 0, 0, True, x.device) if spec.impl != "chunked" else None
+        if want_cache:
+            y, (ckv, kr) = MLA.mla_prefill(p.attn, spec, h, positions, mask, True)
+            cache = {"ckv": _pad_seq(ckv, smax), "kr": _pad_seq(kr, smax)}
+        else:
+            y = MLA.mla_prefill(p.attn, spec, h, positions, mask)
     else:
         spec = _attn_spec(cfg, kind == "attn_local")
         if want_cache:
@@ -239,6 +264,9 @@ def block_decode(p: Block, cfg: ModelConfig, kind: str, x, cache, pos: int):
         cache = {"k": ck, "v": cv}
     elif kind == "attn_local":
         y, cache = _local_decode(p.attn, cfg, h, cache, pos)
+    elif kind == "mla":
+        y, ckv, kr = MLA.mla_decode(p.attn, _mla_spec(cfg), h, cache["ckv"], cache["kr"], pos)
+        cache = {"ckv": ckv, "kr": kr}
     elif kind == "mamba2":
         y, st, cv = SSM.mamba_decode(p.mixer, _mamba_spec(cfg), h, cache["state"], cache["conv"])
         cache = {"state": st, "conv": cv}
@@ -299,6 +327,9 @@ def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, smax: int, dtype):
         w = cfg.window
         shp = (batch, w, cfg.n_kv_heads, cfg.resolved_head_dim)
         return {"k": TensorSpec(shp, kv_dt), "v": TensorSpec(shp, kv_dt), "pos_idx": TensorSpec((w,), torch.int32)}
+    if kind == "mla":  # the latent caches keep the model dtype under kv_cache_quant, as in the reference
+        return {"ckv": TensorSpec((batch, smax, cfg.kv_lora_rank), dtype),
+                "kr": TensorSpec((batch, smax, cfg.qk_rope_head_dim), dtype)}
     if kind == "mamba2":
         s = _mamba_spec(cfg)
         return {

@@ -249,9 +249,10 @@ def test_checkpointer_on_card(cuda):
     assert torch.equal(back["w"], tree["w"])
 
 
-def _qkv(shape_q, shape_kv, dtype, seed, device):
+def _qkv(shape_q, shape_kv, dtype, seed, device, shape_v=None):
     rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in (shape_q, shape_kv, shape_kv))
+    shapes = (shape_q, shape_kv, shape_kv if shape_v is None else shape_v)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes)
     return [t.to(device=device, dtype=dtype) for t in (q, k, v)]
 
 
@@ -266,7 +267,7 @@ def _flash_close(q, k, v, **kw):
     got = flash_attention_cuda(q, k, v, **kw)
     assert flash_attention_cuda.launches == before + 1
     exp = flash_attention_plain(q, k, v, **kw)
-    assert got.dtype == q.dtype and got.shape == q.shape
+    assert got.dtype == q.dtype and got.shape == (*q.shape[:-1], v.shape[-1])
     rtol = chip_smoke.FLASH_RTOL["bfloat16" if q.dtype == torch.bfloat16 else "float32"]
     n_bad = int((~(chip_smoke.flash_err_ratio(got, exp) <= rtol)).sum())
     assert n_bad == 0, f"{n_bad} of {exp.numel()} elements beyond the limit"
@@ -346,6 +347,43 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     k = torch.zeros((1, 16, 2, 36), dtype=torch.bfloat16, device=cuda)[..., :32]
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
         flash_attention_cuda(q, k, k.contiguous())
+
+
+# MLA's head dims (MiniCPM3-4B: q and k 64 + 32 rope, v 64), every query
+# head its own kv head as mla_prefill expands them; lengths on either side
+# of the 128-row tiles, ragged Sq and Skv, windows and Sq > Skv.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (127, 127, True, 0), (129, 129, True, 0), (257, 257, True, 0), (1000, 1000, True, 0), (4097, 4097, True, 0),
+    (300, 100, True, 0), (257, 129, True, 0), (384, 255, False, 0), (1, 77, False, 0), (400, 400, True, 129),
+])
+def test_flash_kernel_mla_head_dims_match_plain(cuda, dtype, sq, skv, causal, window):
+    q, k, v = _qkv((1, sq, 8, 96), (1, skv, 8, 96), dtype, sq + 2 * skv, cuda, shape_v=(1, skv, 8, 64))
+    _flash_close(q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_mla_batch2_and_grouped_heads(cuda):
+    q, k, v = _qkv((2, 257, 40, 96), (2, 257, 8, 96), torch.bfloat16, 7, cuda, shape_v=(2, 257, 8, 64))
+    _flash_close(q, k, v, causal=True, window=0)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_head_dim_pairs_it_was_not_built_for(cuda):
+    """(96, 96), (64, 96), (128, 64) and (96, 32) raise, as does a bf16
+    (96, 64) v that TMA cannot read (an 8-byte offset); no launch is made."""
+    before = flash_attention_cuda.launches
+    for dqk, dv in ((96, 96), (64, 96), (128, 64), (96, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv((1, 16, 2, dqk), (1, 16, 2, dqk), dtype, 0, cuda, shape_v=(1, 16, 2, dv))
+            with pytest.raises(ValueError, match="head dims"):
+                flash_attention_cuda(q, k, v)
+    q, k, _ = _qkv((1, 16, 2, 96), (1, 16, 2, 96), torch.bfloat16, 0, cuda)
+    v = torch.zeros((1, 16, 2, 68), dtype=torch.bfloat16, device=cuda)[..., 4:]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention_cuda(q, k, v)
+    assert flash_attention_cuda.launches == before
 
 
 def _rel_rms(got: torch.Tensor, exp: torch.Tensor) -> float:
@@ -500,6 +538,39 @@ def test_mamba2_and_whisper_on_card_match_cpu(cuda, arch, dtype):
             assert _rel_rms(got, exp) <= tol
     limit = chip_smoke.DECODE_REL_LIMIT["float32" if dtype == torch.float32 else "bfloat16"]
     assert card["decode_vs_prefill_rel_err"] < limit and cpu["decode_vs_prefill_rel_err"] < limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_minicpm3_prefill_on_card_launches_the_kernel_per_layer(cuda, dtype):
+    """MiniCPM3-4B at reduced width and depth (2 layers) with its own head
+    dims (qk 64 + 32, v 64): one launch a layer at (96, 64), none a decode
+    step; the prefill's logits and latent caches, and an absorbed decode
+    step, as on the CPU."""
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("minicpm3-4b").reduced(), attn_impl="chunked", qk_nope_head_dim=64,
+                              qk_rope_head_dim=32, v_head_dim=64, param_dtype=dtype)
+    m, m_cpu = build_model(cfg), build_model(cfg, device="cpu")
+    params = m.init(0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 100)).astype(np.int32)
+    nxt = torch.from_numpy(toks[:, :1].copy())
+    before = flash_attention_cuda.launches
+    logits, caches = m.prefill(params, {"tokens": torch.from_numpy(toks).to(cuda)}, cache_len=120)
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    logits2, _ = m.decode_step(params, caches, nxt.to(cuda), 100)
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    params_cpu = copy.deepcopy(params).to("cpu")
+    ref, ref_caches = m_cpu.prefill(params_cpu, {"tokens": torch.from_numpy(toks)}, cache_len=120)
+    ref2, _ = m_cpu.decode_step(params_cpu, ref_caches, nxt, 100)
+    tol = _TOL[dtype]
+    for got, exp in ((logits, ref), (caches[0][0]["ckv"], ref_caches[0][0]["ckv"]),
+                     (caches[0][0]["kr"], ref_caches[0][0]["kr"]), (logits2, ref2)):
+        got, exp = got.cpu().float(), exp.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, exp, rtol=tol, atol=tol)
+        else:  # as in test_decoder_prefill_on_card_launches_the_kernel_per_layer
+            assert _rel_rms(got, exp) <= tol
 
 
 def _cache_leaves(tree):

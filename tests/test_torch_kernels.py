@@ -401,3 +401,23 @@ def test_res_usage_reads_cuobjdump_text():
         "flash_fwd_wgmma<64>": {"registers": 168, "stack_bytes": 0, "local_bytes": 0},
         "flash_fwd_simt<32>": {"registers": 128, "stack_bytes": 8, "local_bytes": 4},
     }
+
+
+def test_res_usage_reads_both_head_dims_of_a_pair():
+    """A kernel instantiated on (qk, v) head dims is keyed by both."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    text = (
+        " Function _ZN46_GLOBAL__N__0_13_flash_attn_cu_015flash_fwd_wgmmaILi96ELi64EEEv14CUtensorMap_stS1_S1_NS_4ArgsE:\n"
+        "  REG:168 STACK:0 SHARED:48 LOCAL:0 CONSTANT[0]:936 TEXTURE:0 SURFACE:0 SAMPLER:0\n"
+        " Function _ZN46_GLOBAL__N__0_13_flash_attn_cu_014flash_fwd_simtIfLi256ELi256EEEvNS_4ArgsE:\n"
+        "  REG:187 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:512 TEXTURE:0 SURFACE:0 SAMPLER:0\n"
+    )
+    assert chip_smoke.res_usage(text) == {
+        "flash_fwd_wgmma<96, 64>": {"registers": 168, "stack_bytes": 0, "local_bytes": 0},
+        "flash_fwd_simt<256, 256>": {"registers": 187, "stack_bytes": 0, "local_bytes": 0},
+    }

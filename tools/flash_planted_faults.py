@@ -28,12 +28,14 @@ Two act on the head-dim-256 instance of the bfloat16 kernel alone:
 - ``drop_pv_high_half``: O += P V skips its second n128 product, columns
   128..255 of O.
 
-With each build it runs chip_smoke.py's phase-5 grid and three layer
+With each build it runs chip_smoke.py's phase-5 grid and the layer
 checks at the prefills' shapes, each on a layer built at full width from
 random weights (``--seed``) and 8,192 tokens: layer 0 of Qwen2.5-32B
-(head dim 128, causal, bfloat16), and the first local layer of Gemma3-12B
+(head dim 128, causal, bfloat16), the first local layer of Gemma3-12B
 (head dim 256) causal with window 1024 and without, in bfloat16 and
-float32. Every comparison runs to its end and counts the elements beyond
+float32, and layer 0 of MiniCPM3-4B (qk head dim 96, v head dim 64,
+causal; ``chip_smoke.mla_layer0_qkv``) in bfloat16 and float32. Every
+comparison runs to its end and counts the elements beyond
 ``chip_smoke.FLASH_RTOL`` (and, on the Qwen2.5-32B check, the elements
 beyond the reference's fixed 3e-2, for comparison). It prints one JSON
 line per build and exits non-zero unless the sound build passes every
@@ -111,7 +113,7 @@ def layer_check(check, q, k, v, window: int, what: str, fixed: bool = False) -> 
 
     got = check(q, k, v, causal=True, window=window, what=what).float()
     dt = "float32" if q.dtype == torch.float32 else "bfloat16"
-    out = {"mismatches": check.mismatches, "elements": q.numel(), "max_err_ratio": check.max_err_ratio[dt],
+    out = {"mismatches": check.mismatches, "elements": got.numel(), "max_err_ratio": check.max_err_ratio[dt],
            "max_abs_err": check.max_abs_err[dt]}
     if fixed:
         exp = flash_attention_plain(q, k, v, causal=True, window=window).float()
@@ -168,7 +170,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     import chip_smoke
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.models import build_model
 
     src = (_build.CSRC / "flash_attn.cu").read_text()
     with tempfile.TemporaryDirectory() as tmp:
@@ -193,7 +197,14 @@ def main() -> int:
         for window in (gcfg.window, 0):
             layers[f"gemma3-12b window {window}, bf16"] = (q, k, v, window)
             layers[f"gemma3-12b window {window}, fp32"] = (q.float(), k.float(), v.float(), window)
-        del q, k, v
+        mcfg = dataclasses.replace(get_config(chip_smoke.MLA_ARCH), attn_impl="chunked", n_layers=1)
+        params = build_model(mcfg).init(gen)
+        tokens = torch.randint(0, mcfg.vocab, (1, chip_smoke.PREFILL_TOKENS), generator=gen, device=gen.device)
+        q, k, v = chip_smoke.mla_layer0_qkv(params, mcfg, tokens)
+        layers["minicpm3-4b layer 0, bf16"] = (q, k, v, 0)
+        layers["minicpm3-4b layer 0, fp32"] = (q.float(), k.float(), v.float(), 0)
+        del q, k, v, params, tokens
+        torch.cuda.empty_cache()
 
         results = {}
         for name, lib in libs.items():

@@ -7,11 +7,12 @@ Run from the root of the repository on a machine with a CUDA card and nvcc
 (about a minute, most of it the build). It builds
 ``src/repro_torch/csrc/flash_attn.cu``, holds the bf16 kernel against its
 plain version (``chip_smoke.FLASH_RTOL``) at head dims 256, 128, 64 and 32
-on four small cases each (head dim 256 also in float32), and at three
-layer shapes, random from ``--seed``: Qwen2.5-32B's prefill (q (1, 8192,
-40, 128), k/v (1, 8192, 8, 128), causal) and Gemma3-12B's two (q (1,
-8192, 16, 256), k/v (1, 8192, 8, 256), causal with window 1024 and
-without). At each it times the kernel and
+and at MLA's (qk 96, v 64) on four small cases each (head dims 256 and
+(96, 64) also in float32), and at four layer shapes, random from
+``--seed``: Qwen2.5-32B's prefill (q (1, 8192, 40, 128), k/v (1, 8192, 8,
+128), causal), Gemma3-12B's two (q (1, 8192, 16, 256), k/v (1, 8192, 8,
+256), causal with window 1024 and without) and MiniCPM3-4B's (q and k (1,
+8192, 40, 96), v (1, 8192, 40, 64), causal). At each it times the kernel and
 ``scaled_dot_product_attention`` (``chip_smoke._timed``, 10 calls each;
 ``chip_smoke.library_attention_ms``: a boolean band mask for the window,
 the fastest backend that takes the call). It prints the build seconds, the
@@ -56,29 +57,30 @@ def main() -> int:
     check = chip_smoke.FlashCheck(strict=False)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
-    def qkv(b, sq, skv, h, kh, hd, dtype=torch.bfloat16):
-        shapes = ((b, sq, h, hd), (b, skv, kh, hd), (b, skv, kh, hd))
+    def qkv(b, sq, skv, h, kh, hd, dtype=torch.bfloat16, vd=None):
+        shapes = ((b, sq, h, hd), (b, skv, kh, hd), (b, skv, kh, vd or hd))
         return [torch.randn(s, generator=gen, device="cuda").to(dtype) for s in shapes]
 
     cases = ((128, 128, False, 0), (257, 257, True, 0), (300, 300, True, 100), (257, 129, True, 0))
-    for hd, dtype in ((256, torch.bfloat16), (256, torch.float32), (128, torch.bfloat16),
-                      (64, torch.bfloat16), (32, torch.bfloat16)):
+    for hd, vd, dtype in ((256, 256, torch.bfloat16), (256, 256, torch.float32), (128, 128, torch.bfloat16),
+                          (64, 64, torch.bfloat16), (32, 32, torch.bfloat16), (96, 64, torch.bfloat16),
+                          (96, 64, torch.float32)):
         for sq, skv, causal, window in cases:
-            check(*qkv(1, sq, skv, 4, 2, hd, dtype), causal=causal, window=window,
-                  what=f"hd {hd} {dtype} Sq {sq} Skv {skv} causal {causal} window {window}")
+            check(*qkv(1, sq, skv, 4, 2, hd, dtype, vd), causal=causal, window=window,
+                  what=f"hd {hd}/{vd} {dtype} Sq {sq} Skv {skv} causal {causal} window {window}")
             torch.cuda.synchronize()
-        print(f"hd {hd} {dtype}: {check.cases} cases, {check.mismatches} beyond, {check.failed}, "
+        print(f"hd {hd}/{vd} {dtype}: {check.cases} cases, {check.mismatches} beyond, {check.failed}, "
               f"max ratio {check.max_err_ratio}", flush=True)
     times = {}
-    for name, h, kh, hd, window in (("qwen2.5-32b", 40, 8, 128, 0), ("gemma3-12b global", 16, 8, 256, 0),
-                                    ("gemma3-12b local", 16, 8, 256, 1024)):
-        q, k, v = qkv(1, 8192, 8192, h, kh, hd)
+    for name, h, kh, hd, vd, window in (("qwen2.5-32b", 40, 8, 128, 128, 0), ("gemma3-12b global", 16, 8, 256, 256, 0),
+                                        ("gemma3-12b local", 16, 8, 256, 256, 1024), ("minicpm3-4b", 40, 40, 96, 64, 0)):
+        q, k, v = qkv(1, 8192, 8192, h, kh, hd, vd=vd)
         check(q, k, v, causal=True, window=window, what=name)
         torch.cuda.synchronize()
         print(f"{name}: {check.mismatches} beyond, {check.failed}, max ratio {check.max_err_ratio}", flush=True)
         ms = chip_smoke._timed(lambda: flash_attention_cuda(q, k, v, window=window), 10)
         sdpa_ms, backend = chip_smoke.library_attention_ms(q, k, v, window, 10)
-        ops_ms, _ = chip_smoke.flash_bound_ms(q, k, True, window)
+        ops_ms, _ = chip_smoke.flash_bound_ms(q, k, v, True, window)
         times[name] = {"ms": ms, "sdpa_ms": sdpa_ms, "sdpa_backend": backend, "bound_ms": ops_ms,
                        "tflops": ops_ms / ms * chip_smoke.BF16_FLOP_PER_S * 1e-12}
         del q, k, v
