@@ -4,7 +4,8 @@ save, training with dedup checkpoints at the full width of
 LLaVA-NeXT-Mistral-7B, Qwen2.5-32B prefill and prefix-cache serving at
 full width, the sliding-window families (Gemma3-12B, RecurrentGemma-2B),
 Qwen1.5-MoE-A2.7B, Mamba2-1.3B and Whisper-tiny, and MiniCPM3-4B's
-multi-head latent attention at full width.
+multi-head latent attention at full width, and the mesh and dry-run layer
+(a (1, 1) mesh over the card, the production mesh's dry runs).
 
     python3 chip_smoke.py [--seed 0]
 
@@ -123,10 +124,28 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    against the plain version, timed beside it and beside
    ``scaled_dot_product_attention``. Then the same traffic on the model
    in float32 (16.3 GB), within 2e-4. The phase must leave nothing
-   allocated.
+   allocated;
+11. the mesh layer. 11b, right after phase 7 while Qwen2.5-32B is loaded:
+   a world-1 NCCL process group (on a ``HashStore``) and a (1, 1)
+   ("data", "model") mesh over the card; the parameters wrapped as
+   DTensors (``from_local``, no copy) at ``rules_for(mesh, prefill_32k)``'s
+   placements, 8,192 tokens placed by ``batch_shardings`` and prefilled
+   under ``use_sharding_rules``: the logits and the k/v caches must be
+   bitwise the unsharded prefill's on the same tokens, with 64 flash
+   launches (counts set to 0 just before, read just after); both prefills
+   timed and profiled. 11c, on the same mesh: phase 3's layer made again
+   from ``--seed``, saved plainly, then again with its leaves as DTensors:
+   all ref-only, 0 bytes sent, a plain re-save's manifest, 1 cut and 1
+   fingerprint launch, each kernel then held against its twin on that
+   wave. The process group is torn down. 11a:
+   ``repro_torch.launch.train --dryrun`` (train_4k) and
+   ``repro_torch.launch.serve --dryrun`` (decode_32k) for Qwen2.5-32B on
+   the (16, 16) production mesh, side by side as host processes that see
+   no card, started before the build and read after phase 10; each record
+   must read ``status: ok``.
 
-It prints ``main_path``, ``train``, ``prefill``, ``serving`` and ``family``
-JSON lines, a ``kernels`` JSON line, the card's name and power limit from nvidia-smi, and
+It prints ``main_path``, ``train``, ``prefill``, ``serving``, ``family``,
+``mesh_prefill``, ``mesh_save`` and ``dryrun`` JSON lines, a ``kernels`` JSON line, the card's name and power limit from nvidia-smi, and
 last ``{"ok": true, "device": ...}``. It exits non-zero without printing a
 result when torch sees no CUDA device or the repository's package is not
 beside it.
@@ -135,6 +154,7 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -2015,6 +2035,225 @@ def mla_phase(check: FlashCheck, gen) -> tuple[dict, dict]:
     return line, entry
 
 
+# Phase 11a: the dry runs, host passes as the reference's are (the cells'
+# records go to results/dryrun/).
+DRYRUN_CELLS = (("train", "train_4k"), ("serve", "decode_32k"))
+
+
+@contextlib.contextmanager
+def one_by_one_mesh():
+    """A world-1 NCCL process group on a ``HashStore`` (no port is opened)
+    and a (1, 1) ("data", "model") mesh over the card; torn down on exit."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_prefill_phase(model, params, mesh, gen) -> dict:
+    """Phase 11b: phase 6's model on the (1, 1) mesh. Its parameters are
+    wrapped as DTensors at ``rules_for(mesh, prefill_32k)``'s placements and
+    8,192 tokens, placed by ``batch_shardings``, are prefilled under the
+    rules: the logits and every layer's k/v cache must be bitwise the
+    unsharded prefill's on the same tokens, with one flash launch a layer.
+    Both are timed and profiled. Returns the ``mesh_prefill`` line."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.distributed.sharding import place_module, placements, unplace_module, use_sharding_rules
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.launch import specs as SP
+
+    cfg, dev = model.cfg, model.device
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_TOKENS), generator=gen, device=dev)
+    rules = SP.rules_for(mesh, SHAPES["prefill_32k"])
+    spec = SP.batch_shardings(mesh, rules, {"tokens": tokens})["tokens"].spec
+    placed_tokens = DTensor.from_local(tokens, mesh, placements(spec, mesh), run_check=False)
+
+    def plain_prefill():
+        return model.prefill(params, {"tokens": tokens}, cache_len=PREFILL_CACHE)
+
+    def mesh_prefill():
+        with use_sharding_rules(rules):
+            return model.prefill(params, {"tokens": placed_tokens}, cache_len=PREFILL_CACHE)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want, want_caches = plain_prefill()
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t
+    prof_plain = device_profile(plain_prefill)
+    torch.cuda.empty_cache()
+    plain = place_module(params, mesh, rules, lambda t, pl: DTensor.from_local(t, mesh, pl, run_check=False))
+    try:
+        flash_attention_cuda.launches = 0
+        for kind in ops.launch_counts:
+            ops.launch_counts[kind] = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, caches = mesh_prefill()
+        torch.cuda.synchronize()
+        t_mesh = time.perf_counter() - t
+        launches = flash_attention_cuda.launches
+        _check(launches == cfg.n_layers, f"the mesh prefill launched the flash kernel {launches} times")
+        _check(isinstance(got, DTensor), "the mesh prefill's logits are no DTensor")
+        _check(torch.equal(_bits(got.to_local()), _bits(want)), "the mesh prefill's logits differ from the unsharded")
+        for name in ("k", "v"):
+            _check(torch.equal(_bits(caches[0][0][name].to_local()), _bits(want_caches[0][0][name])),
+                   f"the mesh prefill's {name} caches differ from the unsharded")
+        placements_seen = {
+            "logits": [str(p) for p in got.placements],
+            "k_cache": [str(p) for p in caches[0][0]["k"].placements],
+            "wq.w": [str(p) for p in params.blocks[0].attn.wq.w.placements],
+        }
+        del got, caches, want_caches
+        torch.cuda.empty_cache()
+        prof_mesh = device_profile(mesh_prefill)
+        torch.cuda.empty_cache()
+    finally:
+        unplace_module(params, plain)
+    return {
+        "model": f"{cfg.arch_id}, attn_impl {cfg.attn_impl}, {cfg.n_layers} layers, {cfg.param_dtype}",
+        "mesh": "(1, 1) (data, model), NCCL world 1", "rules": "rules_for(mesh, prefill_32k)",
+        "tokens": PREFILL_TOKENS, "cache_len": PREFILL_CACHE, "placements": placements_seen,
+        "flash_launches": launches, "logits_and_caches_bitwise_equal": True,
+        "prefill_s": {"plain": t_plain, "mesh": t_mesh},
+        "profile_plain": prof_plain, "profile_mesh": prof_mesh,
+    }
+
+
+def mesh_save_phase(seed: int, mesh, rows: list[dict]) -> dict:
+    """Phase 11c: phase 3's layer (made again from ``seed``) saved plainly,
+    then again with its leaves wrapped as DTensors on the (1, 1) mesh at the
+    placements the train rules give them: every leaf ref-only, 0 bytes
+    sent, the manifest a plain re-save writes, one cut and one fingerprint
+    launch, each kernel then held against its twin on that wave. Adds the
+    path to ``rows``' ``launches_by_path`` and its comparisons to their
+    counts. Returns the ``mesh_save`` line."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import CheckpointConfig, DedupCheckpointer
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core import ChunkingSpec, DedupCluster
+    from repro_torch.distributed.sharding import infer_param_spec, map_with_path, placements
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cdc import cdc_cut_positions_cuda
+    from repro_torch.kernels.fingerprint import fingerprint_chunks_cuda
+    from repro_torch.launch import specs as SP
+
+    dev = torch.device("cuda")
+    cuda_gen = torch.Generator(device=dev).manual_seed(seed)
+    tree = materialize(decoder_layer_shapes(**QWEN2_5_32B),
+                       lambda s: torch.randn(s, generator=cuda_gen, device=dev, dtype=torch.bfloat16))
+    cluster = DedupCluster.create(4, replicas=2, chunking=ChunkingSpec("fixed", 512 * 1024))
+    ckpt = DedupCheckpointer(cluster, CheckpointConfig())
+    t = time.perf_counter()
+    m1 = ckpt.save("plain", tree)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t
+    sent = ckpt.stats["bytes_sent"]
+    rules = SP.rules_for(mesh, SHAPES["train_4k"])
+    dtree = map_with_path(lambda keys, leaf: DTensor.from_local(
+        leaf, mesh, placements(infer_param_spec(keys, tuple(leaf.shape), rules), mesh), run_check=False), tree)
+    kernels = (cdc_cut_positions_cuda, fingerprint_chunks_cuda)
+    for k in kernels:
+        k.launches = 0
+    for kind in ops.launch_counts:
+        ops.launch_counts[kind] = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m2 = ckpt.save("mesh", dtree)
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t
+    launches = {k.__name__: k.launches for k in kernels}
+    _check(launches == {"cdc_cut_positions_cuda": 1, "fingerprint_chunks_cuda": 1}, f"mesh save launches {launches}")
+    want = {"name": "mesh", "leaves": [{"key": e["key"], "object": f"ckpt/mesh/{e['key']}", "ref": True}
+                                       for e in m1["leaves"]]}
+    _check(m2 == want, "the mesh save's manifest is not a plain identical re-save's")
+    _check(ckpt.stats["bytes_sent"] == sent, f"the mesh save sent {ckpt.stats['bytes_sent'] - sent} B")
+
+    # the two kernels against their twins on the wave the mesh save made
+    check = TwinCheck()
+    leaves = []
+    map_with_path(lambda _, leaf: leaves.append(leaf), dtree)
+    streams = [ops.tensor_to_u8(leaf.full_tensor()) for leaf in leaves]
+    kw = ckpt.spec.kernel_kwargs()
+    check.cuts(streams, kw, "cut-positions kernel on the mesh save's wave")
+    wave_rows, _ = ops.cut_wave_rows(streams, **kw)
+    check.fingerprints(wave_rows, fingerprint_chunks_cuda(wave_rows), "fingerprint kernel on the mesh save's wave")
+    torch.cuda.synchronize()
+    for row in rows:
+        kind = {"cdc_cut_positions_cuda": "cdc_cut", "fingerprint_chunks_cuda": "fingerprint"}.get(row["name"])
+        if kind:
+            row["launches_by_path"]["mesh save"] = launches[row["name"]]
+            row["mismatches"] += check.mismatches[kind]
+            row["max_abs_err"] = max(row["max_abs_err"], check.err[kind])
+            row["mesh_wave"] = {"mismatches": check.mismatches[kind], "max_abs_err": check.err[kind]}
+    return {
+        "tree": "Qwen2.5-32B decoder layer, bf16, leaves as DTensors at rules_for(mesh, train_4k)",
+        "leaves": len(m2["leaves"]), "ref_only": sum(e["ref"] for e in m2["leaves"]),
+        "bytes_sent": ckpt.stats["bytes_sent"] - sent, "kernel_launches": launches,
+        "save_s": {"plain_s1": t_plain, "mesh_resave": t_mesh},
+        "twin_mismatches": {"cdc_cut": check.mismatches["cdc_cut"], "fingerprint": check.mismatches["fingerprint"]},
+    }
+
+
+def start_dry_runs() -> list[tuple]:
+    """Phase 11a: ``repro_torch.launch.train --dryrun`` at train_4k and
+    ``repro_torch.launch.serve --dryrun`` at decode_32k for Qwen2.5-32B on
+    the (16, 16) production mesh, side by side, each a host process that
+    sees no card. Started before the build, they run beside it; a thread
+    notes the moment each ends, and each is killed if the script ends
+    first."""
+    import os
+    import tempfile
+    import threading
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    runs = []
+    for launcher, shape in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", f"repro_torch.launch.{launcher}", "--dryrun", "--arch", "qwen2.5-32b",
+               "--shape", shape]
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out, stderr=err, text=True)
+        atexit.register(proc.kill)
+        ended: list[float] = []
+        waiter = threading.Thread(target=lambda p=proc, e=ended: (p.wait(), e.append(time.perf_counter())),
+                                  daemon=True)
+        waiter.start()
+        runs.append((shape, t0, proc, waiter, ended, out, err))
+    return runs
+
+
+def dry_run_records(runs: list[tuple]) -> list[dict]:
+    """Phase 11a's records, with each process's seconds; each must read
+    ``status: ok``."""
+    recs = []
+    for shape, t0, proc, waiter, ended, out, err in runs:
+        waiter.join(timeout=600)
+        _check(not waiter.is_alive(), f"the {shape} dry run did not end")
+        seconds = ended[0] - t0
+        out.seek(0)
+        err.seek(0)
+        _check(proc.returncode == 0, f"the {shape} dry run exited {proc.returncode}: {err.read()[-2000:]}")
+        rec = json.loads((ROOT / "results" / "dryrun" / f"qwen2.5-32b__{shape}__pod16x16.json").read_text())
+        rec["seconds"] = seconds
+        rec["line"] = out.read().strip().splitlines()[-2]
+        _check(rec["status"] == "ok", f"the {shape} dry run's record reads {rec['status']}: {rec.get('error')}")
+        recs.append(rec)
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2031,6 +2270,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+
+    dry_runs = start_dry_runs()
 
     # ------------------------------------------------------------ 1. build
     t0 = time.perf_counter()
@@ -2090,6 +2331,15 @@ def main() -> int:
 
     # --------------------------------------------- 7. serving at full width
     print("serving " + json.dumps(serve_phase(model, params, args.seed)))
+
+    # ---------- 11b, 11c. the (1, 1) mesh: a prefill and a checkpoint save
+    t11 = time.perf_counter()
+    with one_by_one_mesh() as mesh:
+        mesh_prefill = mesh_prefill_phase(model, params, mesh, gen)
+        print("mesh_prefill " + json.dumps(mesh_prefill))
+        print("mesh_save " + json.dumps(mesh_save_phase(args.seed, mesh, rows_out)))
+    t11 = time.perf_counter() - t11
+    flash_mesh_launches = mesh_prefill["flash_launches"]
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2120,6 +2370,15 @@ def main() -> int:
     print("family " + json.dumps(line))
     _check(line["left_allocated_bytes"] == 0, f"{line['model']} left {line['left_allocated_bytes']} B on the card")
     flash_row["launches_by_path"][f"{MLA_ARCH} prefill"] = line["flash_launches"]["prefill"]
+    flash_row["launches_by_path"]["qwen2.5-32b prefill on a (1, 1) mesh"] = flash_mesh_launches
+
+    # ------------------------------- 11a. the dry runs (host passes)
+    t = time.perf_counter()
+    for rec in dry_run_records(dry_runs):
+        print("dryrun " + json.dumps(rec))
+    t11 += time.perf_counter() - t
+    print(f"phase 11: {t11:.3f} s (11b and 11c on the card, and the wait for 11a's dry runs, "
+          "which ran on the host beside the build)")
     flash_row.update(mismatches=check.mismatches, cases=check.cases, max_abs_err=max(check.max_abs_err.values()),
                      max_abs_err_by_dtype=check.max_abs_err, max_err_ratio=check.max_err_ratio)
     rows_out.append(flash_row)

@@ -23,12 +23,14 @@ either package restores in the other.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import DedupCluster, ReadError
 from repro_torch.core.chunking import ChunkSpec
@@ -70,10 +72,16 @@ def _walk(tree: Any, fn: Callable[[str, Any], Any], path: str = "") -> Any:
     """Apply ``fn(key, leaf)`` to every leaf, rebuilding the containers.
 
     Keys spell what JAX's ``tree_flatten_with_path`` spells, joined with
-    "/": dict keys (visited in sorted order) as ``['name']``, list and tuple
-    indices as ``[0]``. ``None`` holds no leaf."""
+    "/": dict keys as ``['name']`` (a ``dict`` visited in sorted order, an
+    ``OrderedDict`` in its own), namedtuple fields as ``.name``, list and
+    tuple indices as ``[0]``. ``None`` holds no leaf. Each container is
+    rebuilt as its own type."""
+    if isinstance(tree, collections.OrderedDict):
+        return type(tree)((k, _walk(v, fn, _join(path, f"[{k!r}]"))) for k, v in tree.items())
     if isinstance(tree, dict):
         return {k: _walk(tree[k], fn, _join(path, f"[{k!r}]")) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a namedtuple
+        return type(tree)(*(_walk(getattr(tree, f), fn, _join(path, f".{f}")) for f in tree._fields))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_walk(v, fn, _join(path, f"[{i}]")) for i, v in enumerate(tree))
     if tree is None:
@@ -93,7 +101,7 @@ def _leaf_paths(tree: Any) -> list[tuple[str, Any]]:
 
 def _serialize_leaf(leaf) -> bytes:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().contiguous().cpu()
+        t = _as_tensor(leaf).contiguous().cpu()
         if t.dtype == torch.bfloat16:
             arr, dtype_name = t.view(torch.uint16).numpy(), "bfloat16"
         else:
@@ -118,8 +126,13 @@ def _deserialize_leaf(data: bytes, device: torch.device) -> torch.Tensor:
 
 
 # numpy dtype kinds with a torch counterpart: bool, signed and unsigned
-# integers, floats and complex numbers.
+# integers, floats and complex numbers; and bfloat16 by name (``ml_dtypes``
+# spells it as kind "V", what ``np.asarray`` gives for a JAX bf16 array).
 _NUMERIC_KINDS = frozenset("biufc")
+
+
+def _is_bf16(dtype: Any) -> bool:
+    return np.dtype(dtype).name == "bfloat16"
 
 
 def _on_fast_path(leaf: Any) -> bool:
@@ -129,14 +142,23 @@ def _on_fast_path(leaf: Any) -> bool:
     ever written in full."""
     if isinstance(leaf, torch.Tensor):
         return True
-    return hasattr(leaf, "dtype") and np.dtype(leaf.dtype).kind in _NUMERIC_KINDS
+    if not hasattr(leaf, "dtype"):
+        return False
+    return np.dtype(leaf.dtype).kind in _NUMERIC_KINDS or _is_bf16(leaf.dtype)
 
 
 def _as_tensor(leaf: Any) -> torch.Tensor:
-    """A fast-path leaf as a tensor on its own device (numpy on the CPU)."""
+    """A fast-path leaf as a tensor on its own device (numpy on the CPU;
+    a numpy bfloat16 leaf through its ``uint16`` bits, the same bytes). A
+    DTensor leaf is taken whole, as the JAX package takes a sharded array."""
+    if isinstance(leaf, DTensor):
+        return leaf.detach().full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach()
-    return torch.from_numpy(np.ascontiguousarray(leaf))
+    arr = np.ascontiguousarray(leaf)
+    if _is_bf16(arr.dtype):
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class DedupCheckpointer:

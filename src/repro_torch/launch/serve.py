@@ -3,10 +3,13 @@ prefix-cache dedup, on the port.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b --requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-110b --dryrun --shape decode_32k
 
 The model is the arch's reduced variant (as the JAX package's
 ``repro.launch.serve``), with random weights from seed 0, on CUDA unless
-``--device`` names another device.
+``--device`` names another device. ``--dryrun`` places the full config's
+step on the production mesh at ``--shape`` instead
+(``repro_torch.launch.dryrun``, a host pass).
 """
 
 from __future__ import annotations
@@ -25,11 +28,20 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--shared-prefix", type=int, default=48)
     ap.add_argument("--nodes", type=int, default=4)
     ap.add_argument("--dryrun", action="store_true")
+    ap.add_argument("--shape", default="decode_32k")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
     if args.dryrun:
-        raise SystemExit("--dryrun waits for ROADMAP A5 (the mesh and dry-run layer)")
+        # Re-exec through the dry run: its fake process group must be the
+        # first one of its process.
+        import os
+        import subprocess
+        import sys
+
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", args.arch, "--shape", args.shape, "--force"]
+        raise SystemExit(subprocess.call(cmd, env=os.environ))
 
     from repro_torch.configs import get_config
     from repro_torch.core import ChunkingSpec, DedupCluster

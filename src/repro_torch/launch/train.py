@@ -4,11 +4,13 @@ with dedup checkpointing against the in-process shared-nothing cluster.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-32b --steps 50 \
       --ckpt-every 10 [--resume step-10]
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-32b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-110b --dryrun
 
-The single-host mode of the JAX package's ``repro.launch.train``, with the
-same flags and lines, on CUDA unless ``--device`` names another device.
-The weights are random from seed 0. ``--dryrun`` (the production mesh) is
-not ported yet, nor is ``--shape``, which only sizes it.
+The JAX package's ``repro.launch.train``, with the same flags and lines:
+single-host steps on CUDA unless ``--device`` names another device (random
+weights from seed 0), or with ``--dryrun`` the full config's step placed
+on the production mesh at ``--shape`` (``repro_torch.launch.dryrun``, a
+host pass).
 """
 
 from __future__ import annotations
@@ -28,11 +30,20 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--nodes", type=int, default=4, help="dedup storage nodes")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--dryrun", action="store_true")
+    ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
     if args.dryrun:
-        raise SystemExit("--dryrun waits for ROADMAP A5 (the mesh and dry-run layer)")
+        # Re-exec through the dry run: its fake process group must be the
+        # first one of its process.
+        import os
+        import subprocess
+        import sys
+
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", args.arch, "--shape", args.shape, "--force"]
+        raise SystemExit(subprocess.call(cmd, env=os.environ))
 
     from repro_torch.checkpoint import DedupCheckpointer
     from repro_torch.configs import get_config

@@ -31,13 +31,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import map_with_path
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.encdec import DecBlock, EncDecLM
-from repro_torch.models.transformer import Block, DecoderLM, check_kind
+from repro_torch.models.transformer import Block, DecoderLM, TensorSpec, check_kind
 
 # The mixers' array leaves, between their two dense projections, in their
 # modules' argument order.
@@ -255,7 +256,10 @@ def _tree_of_named(named: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
 
 
 def _stack_tensors(trees: list[dict]) -> dict:
-    return {k: _stack_tensors([t[k] for t in trees]) if isinstance(v, dict) else torch.stack([t[k] for t in trees])
+    """Stack leaves on a new leading axis; a per-layer ``w_scale`` becomes
+    ``(G, 1, 1)``, as in ``_stack``."""
+    return {k: _stack_tensors([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k].reshape(1, 1) if k == "w_scale" else t[k] for t in trees])
             for k, v in trees[0].items()}
 
 
@@ -267,6 +271,15 @@ def params_tree(params: "DecoderLM | EncDecLM", cfg: ModelConfig) -> dict:
     ``init_encdec``'s), as detached tensors on their device (block leaves
     stacked: copies)."""
     return _tree_of_named({n: p.detach() for n, p in params.named_parameters()}, cfg)
+
+
+def spec_tree(params: "DecoderLM | EncDecLM", cfg: ModelConfig) -> dict:
+    """The JAX tree of a model's parameters and ``w_scale`` buffers as
+    ``TensorSpec``s (``Model.param_specs``; run under ``FakeTensorMode``,
+    the stacking allocates nothing)."""
+    named = {n: p.detach() for n, p in params.named_parameters()}
+    named.update((n, b) for n, b in params.named_buffers() if n.endswith("w_scale"))
+    return map_with_path(lambda _, t: TensorSpec(tuple(t.shape), t.dtype), _tree_of_named(named, cfg))
 
 
 def train_state_to_tree(state: dict, cfg: ModelConfig) -> dict:

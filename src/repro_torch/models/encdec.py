@@ -31,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import empty_stacked, flatten, unflatten, write_slice
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Block, TensorSpec
 
@@ -162,14 +163,14 @@ def encdec_prefill(params: EncDecLM, cfg: ModelConfig, tokens: torch.Tensor, fra
     for i, lp in enumerate(params.dec_blocks):
         x, self_kv = _dec_block(lp, cfg, x, positions, enc_out, enc_pos, True)
         cross_kv = {
-            "k": L.dense(lp.cross_attn.wk, enc_out).reshape(b, s_enc, spec.n_kv_heads, spec.head_dim),
-            "v": L.dense(lp.cross_attn.wv, enc_out).reshape(b, s_enc, spec.n_kv_heads, spec.head_dim),
+            "k": unflatten(L.dense(lp.cross_attn.wk, enc_out), -1, (spec.n_kv_heads, spec.head_dim)),
+            "v": unflatten(L.dense(lp.cross_attn.wv, enc_out), -1, (spec.n_kv_heads, spec.head_dim)),
         }
         for part, kv in (("self", self_kv), ("cross", cross_kv)):
             for name, t in kv.items():
                 if name not in caches[part]:
-                    caches[part][name] = torch.empty((cfg.n_layers, *t.shape), dtype=t.dtype, device=t.device)
-                caches[part][name][i] = t
+                    caches[part][name] = empty_stacked(cfg.n_layers, t)
+                write_slice(caches[part][name], 0, i, t.unsqueeze(0))
     x = L.rms_norm(params.final_norm, x, cfg.norm_eps)
     return L.unembed(params.embed, x), caches
 
@@ -195,11 +196,11 @@ def encdec_decode(params: EncDecLM, cfg: ModelConfig, caches, token: torch.Tenso
         # cross attention against the precomputed encoder K/V (no mask, no
         # rope), in the model dtype up to the fp32 softmax, as the reference
         kx, vx = caches["cross"]["k"][i], caches["cross"]["v"][i]
-        q = L.dense(lp.cross_attn.wq, hx).reshape(b, 1, spec_cross.n_heads, hd)
-        qg = q.reshape(b, 1, spec_cross.n_kv_heads, rep, hd)
+        q = unflatten(L.dense(lp.cross_attn.wq, hx), -1, (spec_cross.n_heads, hd))
+        qg = unflatten(q, 2, (spec_cross.n_kv_heads, rep))
         sc = torch.einsum("bqkrh,bskh->bkrqs", qg, kx).float() / math.sqrt(hd)
         w = torch.softmax(sc, dim=-1).to(x.dtype)
-        o = torch.einsum("bkrqs,bskh->bqkrh", w, vx).reshape(b, 1, spec_cross.n_heads * hd)
+        o = flatten(torch.einsum("bkrqs,bskh->bqkrh", w, vx), 2)
         x = x + L.dense(lp.cross_attn.wo, o)
         x = x + L.ffn(lp.ffn, L.rms_norm(lp.norm2, x, cfg.norm_eps), cfg.act)
     x = L.rms_norm(params.final_norm, x, cfg.norm_eps)

@@ -9,8 +9,12 @@ those modules where the JAX code takes dicts. Dense weights are
 between the packages without a transpose.
 
 Conventions, as in the reference: activations in the config dtype; norms,
-softmax and rope math in fp32. There are no sharding annotations: the port
-runs on one card (the mesh layer is ROADMAP A5).
+softmax and rope math in fp32. ``shard()`` annotations stand where the
+reference's stand; they act only on DTensors under a rules context
+(``repro_torch.distributed``), so a plain tensor takes exactly the path it
+took without them. Under a mesh a dense weight's data-axis (FSDP) shards
+are gathered at use, and attention runs on each rank's local shards, a
+whole problem for it (``local_region``): no DTensor reaches a kernel.
 
 ``mha`` with ``impl="chunked"`` runs the hand-written flash-attention kernel
 (``repro_torch.kernels.flash_attn``) on a CUDA tensor and the plain
@@ -25,7 +29,12 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import (
+    flatten, fold_leading, gather_fsdp, local_region, match_heads, replicate_dim, replicated_like, shard, unflatten,
+    write_slice,
+)
 from repro_torch.kernels import ops
 
 
@@ -86,10 +95,15 @@ def init_dense(gen, d_in: int, d_out: int, dtype, bias: bool = False,
 
 
 def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
-    w = p.w
+    w = gather_fsdp(p.w)
     if p.w_scale is not None:  # w8a16 serving weights: int8 + per-tensor scale
         w = w.to(x.dtype) * p.w_scale.to(x.dtype)
-    y = x @ w
+    if isinstance(x, DTensor) and x.ndim > 2:
+        # fold the leading dims into one product, as torch.matmul folds a
+        # plain tensor (DTensor's matmul takes a strided slice to bmm)
+        y = (fold_leading(x) @ w).unflatten(0, x.shape[:-1])
+    else:
+        y = x @ w
     if p.b is not None:
         y = y + p.b
     return y
@@ -97,9 +111,10 @@ def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
 
 def raw_weight(p: Dense, dtype) -> torch.Tensor:
     """Materialize a dense weight in compute dtype (dequantizing w8)."""
+    w = gather_fsdp(p.w)
     if p.w_scale is not None:
-        return p.w.to(dtype) * p.w_scale.to(dtype)
-    return p.w.to(dtype)
+        return w.to(dtype) * p.w_scale.to(dtype)
+    return w.to(dtype)
 
 
 @torch.no_grad()
@@ -141,8 +156,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)               # (hd/2,)
     ang = positions[..., None].float() * freqs            # (..., S, hd/2)
-    cos = torch.cos(ang)[..., None, :]                    # (..., S, 1, hd/2)
-    sin = torch.sin(ang)[..., None, :]
+    cos = replicated_like(x, torch.cos(ang)[..., None, :])  # (..., S, 1, hd/2)
+    sin = replicated_like(x, torch.sin(ang)[..., None, :])
     xf = x.float()
     x1, x2 = xf[..., : hd // 2], xf[..., hd // 2 :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -166,7 +181,9 @@ def _act_fn(name: str):
 def ffn(p: FFN, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     g = dense(p.gate, x)
     u = dense(p.up, x)
-    return dense(p.down, _act_fn(act)(g) * u)
+    g = shard(g, "batch", "seq", "act_d_ff")
+    y = dense(p.down, _act_fn(act)(g) * u)
+    return shard(y, "batch", "residual_seq", None)
 
 
 # ------------------------------------------------------------- attention ---
@@ -299,37 +316,49 @@ def mha(
     b, sq, _ = x.shape
     src = x if kv_x is None else kv_x
     skv = src.shape[1]
-    q = dense(p.wq, x).reshape(b, sq, s.n_heads, s.head_dim)
-    k = dense(p.wk, src).reshape(b, skv, s.n_kv_heads, s.head_dim)
-    v = dense(p.wv, src).reshape(b, skv, s.n_kv_heads, s.head_dim)
+    q = unflatten(dense(p.wq, x), -1, (s.n_heads, s.head_dim))
+    k = unflatten(dense(p.wk, src), -1, (s.n_kv_heads, s.head_dim))
+    v = unflatten(dense(p.wv, src), -1, (s.n_kv_heads, s.head_dim))
     if use_rope:
         q = apply_rope(q, positions, s.rope_theta)
         kpos = positions if kv_positions is None else kv_positions
         k = apply_rope(k, kpos, s.rope_theta)
+    q = shard(q, "batch", "seq", "act_heads", None)
+    k = shard(k, "batch", "kv_seq", "act_heads", None)
+    v = shard(v, "batch", "kv_seq", "act_heads", None)
 
     rep = s.n_heads // s.n_kv_heads
     if s.impl == "chunked" and kv_x is None and x.device.type == "cuda":
         if mask_offset != 0:
             raise ValueError(f"the flash kernel takes mask_offset 0 only, got {mask_offset}")
-        o = ops.flash_attention(q, k, v, causal=s.causal, window=s.window)
-        o = o.to(x.dtype).reshape(b, sq, s.n_heads * s.head_dim)
+
+        def core(q, k, v):
+            return ops.flash_attention(q, k, v, causal=s.causal, window=s.window).to(x.dtype)
     elif s.impl == "chunked" and kv_x is None:
-        qg = q.reshape(b, sq, s.n_kv_heads, rep, s.head_dim)
-        o = chunked_attention(
-            qg, k, v,
-            causal=s.causal, window=s.window, mask_offset=mask_offset,
-            q_chunk=s.q_chunk, kv_chunk=s.kv_chunk,
-            scale=1.0 / math.sqrt(s.head_dim),
-        ).to(x.dtype).reshape(b, sq, s.n_heads * s.head_dim)
+        def core(q, k, v):
+            qg = q.reshape(*q.shape[:2], k.shape[2], rep, s.head_dim)
+            o = chunked_attention(
+                qg, k, v,
+                causal=s.causal, window=s.window, mask_offset=mask_offset,
+                q_chunk=s.q_chunk, kv_chunk=s.kv_chunk,
+                scale=1.0 / math.sqrt(s.head_dim),
+            )
+            return o.to(x.dtype).flatten(2, 3)
     else:
-        qg = q.reshape(b, sq, s.n_kv_heads, rep, s.head_dim)
-        scores = torch.einsum("bqkrh,bskh->bkrqs", qg, k).float()
-        scores = scores / math.sqrt(s.head_dim)
-        if kv_x is None:  # self-attention mask
-            scores = scores + _attn_mask(sq, skv, mask_offset, s.window, s.causal, x.device)
-        w = torch.softmax(scores, dim=-1).to(x.dtype)
-        o = torch.einsum("bkrqs,bskh->bqkrh", w, v).reshape(b, sq, s.n_heads * s.head_dim)
+        def core(q, k, v):
+            qg = q.reshape(*q.shape[:2], k.shape[2], rep, s.head_dim)
+            scores = torch.einsum("bqkrh,bskh->bkrqs", qg, k).float()
+            scores = scores / math.sqrt(s.head_dim)
+            if kv_x is None:  # self-attention mask
+                scores = scores + _attn_mask(sq, skv, mask_offset, s.window, s.causal, q.device)
+            w = torch.softmax(scores, dim=-1).to(x.dtype)
+            return torch.einsum("bkrqs,bskh->bqkrh", w, v).flatten(2, 3)
+    # Attention is per batch row and head group: each rank's shards are a
+    # whole problem for it (and for the kernel, which takes no DTensor).
+    o = flatten(local_region(core, *match_heads(q, k, v)), 2)
+    o = shard(o, "batch", "seq", "act_heads")
     y = dense(p.wo, o)
+    y = shard(y, "batch", "residual_seq", None)
     if return_kv:
         return y, (k, v)
     return y
@@ -368,29 +397,29 @@ def mha_decode(
     tensors."""
     b, one, _ = x.shape
     smax = cache_k.shape[1]
-    q = dense(p.wq, x).reshape(b, one, s.n_heads, s.head_dim)
-    k = dense(p.wk, x).reshape(b, one, s.n_kv_heads, s.head_dim)
-    v = dense(p.wv, x).reshape(b, one, s.n_kv_heads, s.head_dim)
+    q = unflatten(dense(p.wq, x), -1, (s.n_heads, s.head_dim))
+    k = unflatten(dense(p.wk, x), -1, (s.n_kv_heads, s.head_dim))
+    v = unflatten(dense(p.wv, x), -1, (s.n_kv_heads, s.head_dim))
     if use_rope:
         pvec = torch.full((b, one), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, pvec, s.rope_theta)
         k = apply_rope(k, pvec, s.rope_theta)
-    cache_k[:, pos : pos + one] = _kv_quant(k, cache_k.dtype)
-    cache_v[:, pos : pos + one] = _kv_quant(v, cache_v.dtype)
+    write_slice(cache_k, 1, pos, _kv_quant(k, cache_k.dtype))
+    write_slice(cache_v, 1, pos, _kv_quant(v, cache_v.dtype))
+    ck = shard(cache_k, "batch", "kv_seq", "act_heads", None)
+    cv = shard(cache_v, "batch", "kv_seq", "act_heads", None)
 
     rep = s.n_heads // s.n_kv_heads
-    qg = q.reshape(b, one, s.n_kv_heads, rep, s.head_dim)
-    scores = torch.einsum("bqkrh,bskh->bkrqs", qg.float(), _kv_dequant(cache_k).float())
+    qg = unflatten(q, 2, (s.n_kv_heads, rep))
+    scores = torch.einsum("bqkrh,bskh->bkrqs", qg.float(), _kv_dequant(ck).float())
     scores = scores / math.sqrt(s.head_dim)
     ki = torch.arange(smax, device=x.device)
     ok = ki <= pos
     if s.window > 0:
         ok = ok & (ki > pos - s.window)
-    scores = torch.where(ok, scores, -math.inf)
+    scores = torch.where(replicated_like(scores, ok), scores, -math.inf)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = torch.einsum(
-        "bkrqs,bskh->bqkrh", w.float(), _kv_dequant(cache_v).float()
-    ).to(x.dtype).reshape(b, one, s.n_heads * s.head_dim)
+    o = flatten(torch.einsum("bkrqs,bskh->bqkrh", w.float(), _kv_dequant(cv).float()).to(x.dtype), 2)
     y = dense(p.wo, o)
     return y, cache_k, cache_v
 
@@ -401,8 +430,13 @@ def init_embedding(gen, vocab: int, d_model: int, dtype, device=None) -> Embeddi
 
 
 def embed(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return p.table[tokens]
+    if isinstance(p.table, DTensor):  # the lookup takes the whole table
+        y = F.embedding(tokens, replicate_dim(replicate_dim(p.table, 0), 1))
+    else:
+        y = p.table[tokens]
+    return shard(y, "batch", "seq", None)
 
 
 def unembed(p: Embedding, x: torch.Tensor) -> torch.Tensor:
-    return x @ p.table.T
+    logits = x @ gather_fsdp(p.table).T
+    return shard(logits, "batch", "seq", "act_vocab")

@@ -25,6 +25,9 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import (
+    flatten, local_region, match_heads, place_as, reduce_partial, replicated_like, shard, unflatten, write_slice,
+)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
     Dense,
@@ -102,7 +105,7 @@ def _queries(p: MLA, s: MLASpec, x: torch.Tensor, positions: torch.Tensor):
     """Per-head (nope, rope) queries: (B, S, H, qk_nope), (B, S, H, qk_rope)."""
     b, sl, _ = x.shape
     ql = rms_norm(p.q_norm, dense(p.w_dq, x), s.norm_eps)
-    q = dense(p.w_uq, ql).reshape(b, sl, s.n_heads, s.qk_head_dim)
+    q = unflatten(dense(p.w_uq, ql), -1, (s.n_heads, s.qk_head_dim))
     q_nope = q[..., : s.qk_nope_head_dim]
     q_rope = apply_rope(q[..., s.qk_nope_head_dim :], positions, s.rope_theta)
     return q_nope, q_rope
@@ -118,13 +121,25 @@ def mla_prefill(p: MLA, s: MLASpec, x: torch.Tensor, positions: torch.Tensor, ma
     h = s.n_heads
     c_kv, k_rope = _latents(p, s, x, positions)
     q_nope, q_rope = _queries(p, s, x, positions)
-    k_nope = dense(p.w_uk, c_kv).reshape(b, sl, h, s.qk_nope_head_dim)
-    v = dense(p.w_uv, c_kv).reshape(b, sl, h, s.v_head_dim)
+    k_nope = unflatten(dense(p.w_uk, c_kv), -1, (h, s.qk_nope_head_dim))
+    v = unflatten(dense(p.w_uv, c_kv), -1, (h, s.v_head_dim))
+    q_nope = shard(q_nope, "batch", "seq", "act_heads", None)
+    k_nope = shard(k_nope, "batch", "kv_seq", "act_heads", None)
+    v = shard(v, "batch", "kv_seq", "act_heads", None)
 
     scale = 1.0 / math.sqrt(s.qk_head_dim)
-    if s.impl == "chunked":
+
+    def core(q_nope, q_rope, k_nope, k_rope, v):
+        if s.impl != "chunked":
+            scores = (
+                torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
+                + torch.einsum("bqhd,bsxd->bhqs", q_rope, k_rope)
+            ).float() * scale
+            scores = scores + mask
+            w = torch.softmax(scores, dim=-1).to(x.dtype)
+            return torch.einsum("bhqs,bshd->bqhd", w, v).flatten(2)
         q_full = torch.cat([q_nope, q_rope], dim=-1)                          # (B, S, H, qk)
-        k_full = torch.cat([k_nope, k_rope.expand(b, sl, h, s.qk_rope_head_dim)], dim=-1)
+        k_full = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], s.qk_rope_head_dim)], dim=-1)
         if x.device.type == "cuda":  # the flash kernel at (qk, v) head dims; its scale is 1/sqrt(qk)
             o = ops.flash_attention(q_full, k_full, v, causal=True)
         else:
@@ -133,16 +148,13 @@ def mla_prefill(p: MLA, s: MLASpec, x: torch.Tensor, positions: torch.Tensor, ma
                 causal=True, window=0, mask_offset=0,
                 q_chunk=s.q_chunk, kv_chunk=s.kv_chunk, scale=scale,
             )
-        o = o.to(x.dtype).reshape(b, sl, h * s.v_head_dim)
-    else:
-        scores = (
-            torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
-            + torch.einsum("bqhd,bsxd->bhqs", q_rope, k_rope)
-        ).float() * scale
-        scores = scores + mask
-        w = torch.softmax(scores, dim=-1).to(x.dtype)
-        o = torch.einsum("bhqs,bshd->bqhd", w, v).reshape(b, sl, h * s.v_head_dim)
+        return o.to(x.dtype).flatten(2)
+
+    # per batch row and head: each rank's shards are a whole problem
+    q_nope, k_nope, v = match_heads(q_nope, k_nope, v)
+    o = local_region(core, q_nope, place_as(q_rope, q_nope), k_nope, place_as(k_rope, q_nope), v)
     y = dense(p.wo, o)
+    y = shard(y, "batch", "residual_seq", None)
     if return_cache:
         return y, (c_kv, k_rope.reshape(b, sl, s.qk_rope_head_dim))
     return y
@@ -156,12 +168,13 @@ def mla_decode(p: MLA, s: MLASpec, x: torch.Tensor, cache_ckv: torch.Tensor, cac
     h, r = s.n_heads, s.kv_lora_rank
     pvec = torch.full((b, one), pos, dtype=torch.int32, device=x.device)
     c_kv, k_rope = _latents(p, s, x, pvec)
-    cache_ckv[:, pos : pos + one] = c_kv.to(cache_ckv.dtype)
-    cache_kr[:, pos : pos + one] = k_rope.reshape(b, one, s.qk_rope_head_dim).to(cache_kr.dtype)
+    write_slice(cache_ckv, 1, pos, c_kv.to(cache_ckv.dtype))
+    write_slice(cache_kr, 1, pos, k_rope.reshape(b, one, s.qk_rope_head_dim).to(cache_kr.dtype))
+    cache_ckv = shard(cache_ckv, "batch", "kv_seq", None)
 
     q_nope, q_rope = _queries(p, s, x, pvec)
     # absorb w_uk into q: q_lat (B, 1, H, r) = q_nope @ w_uk^T, per head
-    w_uk = raw_weight(p.w_uk, x.dtype).reshape(r, h, s.qk_nope_head_dim)
+    w_uk = unflatten(raw_weight(p.w_uk, x.dtype), -1, (h, s.qk_nope_head_dim))
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
     scale = 1.0 / math.sqrt(s.qk_head_dim)
     scores = (
@@ -170,10 +183,12 @@ def mla_decode(p: MLA, s: MLASpec, x: torch.Tensor, cache_ckv: torch.Tensor, cac
     ).float() * scale
     smax = cache_ckv.shape[1]
     ok = torch.arange(smax, device=x.device) <= pos
-    scores = torch.where(ok, scores, -math.inf)
+    scores = torch.where(replicated_like(scores, ok), scores, -math.inf)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
-    o_lat = torch.einsum("bhqs,bsr->bqhr", w, cache_ckv)                       # (B, 1, H, r)
+    # summed over the cache's sequence shards here: left partial, DTensor
+    # would reduce-scatter it over 40 heads on a 16-way axis, unevenly
+    o_lat = reduce_partial(torch.einsum("bhqs,bsr->bqhr", w, cache_ckv))   # (B, 1, H, r)
     # absorb w_uv into the output projection
-    w_uv = raw_weight(p.w_uv, x.dtype).reshape(r, h, s.v_head_dim)
-    o = torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv).reshape(b, one, h * s.v_head_dim)
+    w_uv = unflatten(raw_weight(p.w_uv, x.dtype), -1, (h, s.v_head_dim))
+    o = flatten(torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv), 2)
     return dense(p.wo, o), cache_ckv, cache_kr

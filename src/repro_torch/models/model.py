@@ -9,6 +9,7 @@ functions the train loop and the server call:
     decode_step(params, caches, token, pos) -> (logits, caches)
     input_specs(shape)                      -> dict of TensorSpec
     cache_specs(shape)                      -> TensorSpec tree
+    param_specs(seed)                       -> TensorSpec tree (JAX layout)
 
 ``loss_fn`` runs with autograd; ``prefill`` and ``decode_step`` run
 without it. Every block kind of the JAX package is ported, so every
@@ -23,8 +24,10 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.distributed.sharding import replicate_dim, replicated_like
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
@@ -35,11 +38,13 @@ from repro_torch.models.transformer import TensorSpec
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Mean masked CE in fp32. labels < 0 are ignored. When the logits dim
     is padded past `vocab` (sharding-friendly padded_vocab), padded ids are
-    masked to -1e30 so they carry no probability mass."""
-    lf = logits.float()
+    masked to -1e30 so they carry no probability mass. Vocab-sharded
+    DTensor logits are gathered on the vocab dim first (DTensor places no
+    gather along a split dim); the pad mask is a constant, replicated."""
+    lf = replicate_dim(logits, -1).float()
     if vocab and lf.shape[-1] > vocab:
         pad_mask = torch.arange(lf.shape[-1], device=lf.device) >= vocab
-        lf = torch.where(pad_mask, -1e30, lf)
+        lf = torch.where(replicated_like(lf, pad_mask), -1e30, lf)
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
     nll = logz - gold
@@ -58,6 +63,23 @@ class Model:
     decode_step: Callable
     input_specs: Callable
     cache_specs: Callable
+
+    def param_specs(self, seed: int = 0):
+        """The JAX package's parameter tree (``init``'s, blocks stacked as
+        ``models.convert`` lays them out) as ``TensorSpec``s. The shapes come
+        from an ``init`` under ``FakeTensorMode``: nothing is allocated, and
+        no number is drawn, so ``seed`` changes nothing."""
+        from repro_torch.models.convert import spec_tree  # convert imports this package
+
+        with FakeTensorMode():
+            gen = torch.Generator(device="cpu").manual_seed(seed)
+            if self.cfg.enc_dec:
+                params = ED.init_encdec(gen, self.cfg, device="cpu")
+            else:
+                params = T.init_decoder(gen, self.cfg, device="cpu")
+                if self.cfg.weight_quant:
+                    params = L.quantize_dense_weights(params)
+            return spec_tree(params, self.cfg)
 
 
 def _frontend_tokens(cfg: ModelConfig, shape: ShapeSpec) -> int:
@@ -111,7 +133,7 @@ def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
             hidden = hidden[:, n_front:]
         logits = T.logits_from_hidden(params, cfg, hidden)
         loss, n_tok = lm_loss(logits, batch["labels"], cfg.vocab)
-        total = loss + aux_coeff * aux
+        total = loss + aux_coeff * replicated_like(loss, aux)
         return total, {"loss": loss, "aux_loss": aux, "tokens": n_tok}
 
     @torch.no_grad()

@@ -36,7 +36,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed.sharding import local_region, place_as, replicated_like, shard
 from repro_torch.models.layers import FFN, Dense, _act_fn, _normal, _param, dense, ffn, init_dense, init_ffn
 
 
@@ -127,6 +129,16 @@ def dispatch_slots(s: MoESpec, ids: torch.Tensor, g: int) -> tuple[torch.Tensor,
     return slot.reshape(ng, g, k), keep.reshape(ng, g, k)
 
 
+def _experts_of(w: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
+    """An expert weight (E, ...) split over its experts as the dispatched
+    tokens ``xe`` (G, E, C, D) are, and whole on every other mesh axis
+    (its FSDP shards gathered); a plain tensor as it is."""
+    if not isinstance(xe, DTensor):
+        return w
+    want = tuple(Shard(0) if p == Shard(1) else Replicate() for p in xe.placements)
+    return w if tuple(w.placements) == want else w.redistribute(xe.device_mesh, want)
+
+
 def moe_ffn(p: MoE, s: MoESpec, x: torch.Tensor):
     """x: (B, S, D) -> (y, aux_loss).
 
@@ -145,21 +157,28 @@ def moe_ffn(p: MoE, s: MoESpec, x: torch.Tensor):
 
     slot, keep = dispatch_slots(s, ids, g)
     kd = keep.to(x.dtype)
-    disp = torch.zeros((ng, g, e * cap), dtype=x.dtype, device=x.device)
+    disp = place_as(replicated_like(slot, torch.zeros((ng, g, e * cap), dtype=x.dtype, device=x.device)), slot)
     disp.scatter_add_(2, slot, kd)
-    comb = torch.zeros((ng, g, e * cap), dtype=x.dtype, device=x.device)
+    comb = place_as(replicated_like(slot, torch.zeros((ng, g, e * cap), dtype=x.dtype, device=x.device)), slot)
     comb.scatter_add_(2, slot, weights.reshape(ng, g, s.top_k) * kd)
     disp = disp.reshape(ng, g, e, cap)
     comb = comb.reshape(ng, g, e, cap)
 
     xg = x2d.reshape(ng, g, d)
     xe = torch.einsum("gsec,gsd->gecd", disp, xg)                   # (G, E, C, D)
-    we = p.experts
-    gh = torch.einsum("gecd,edf->gecf", xe, we.gate)
-    uh = torch.einsum("gecd,edf->gecf", xe, we.up)
-    h = _act_fn(s.act)(gh) * uh
-    ye = torch.einsum("gecf,efd->gecd", h, we.down)                 # (G, E, C, D)
+    xe = shard(xe, "batch", "act_experts", None, None)              # all-to-all: g->E
+
+    def experts(xe, gate, up, down):
+        gh = torch.einsum("gecd,edf->gecf", xe, gate)
+        uh = torch.einsum("gecd,edf->gecf", xe, up)
+        h = _act_fn(s.act)(gh) * uh
+        return torch.einsum("gecf,efd->gecd", h, down)              # (G, E, C, D)
+
+    # each rank's token groups against its experts
+    ye = local_region(experts, xe, *(_experts_of(w, xe) for w in (p.experts.gate, p.experts.up, p.experts.down)))
+    ye = shard(ye, "batch", "act_experts", None, None)
     y = torch.einsum("gsec,gecd->gsd", comb, ye).reshape(b, sl, d)  # (G, g, D)
+    y = shard(y, "batch", "seq", None)
 
     if p.shared is not None:
         y = y + ffn(p.shared, x, s.act)

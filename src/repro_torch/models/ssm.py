@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import flatten, place_as, replicated_like, shard, unflatten
 from repro_torch.models.layers import Dense, _normal, _param, dense, init_dense
 
 
@@ -132,6 +133,7 @@ def mamba_prefill(p: Mamba2, s: MambaSpec, u: torch.Tensor, return_cache: bool =
 
     h, pdim, n = s.n_heads, s.head_dim, s.d_state
     xh = x.reshape(bsz, nc, q, h, pdim)
+    xh = shard(xh, "batch", None, None, "act_heads", None)
     bg = bb.reshape(bsz, nc, q, s.n_groups, n)[:, :, :, 0]          # G=1 -> (B,NC,Q,N)
     cg = cc.reshape(bsz, nc, q, s.n_groups, n)[:, :, :, 0]
     dt = F.softplus(dt_raw.float() + p.dt_bias)                     # (B,S,H)
@@ -142,7 +144,7 @@ def mamba_prefill(p: Mamba2, s: MambaSpec, u: torch.Tensor, return_cache: bool =
     # --- intra-chunk (quadratic) -------------------------------------------
     cb = torch.einsum("bnim,bnjm->bnij", cg, bg).float()            # (B,NC,Q,Q)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=u.device))[:, :, None]
-    expo = torch.where(tri, cum[:, :, :, None, :] - cum[:, :, None, :, :], -math.inf)
+    expo = torch.where(replicated_like(cum, tri), cum[:, :, :, None, :] - cum[:, :, None, :, :], -math.inf)
     wts = cb[..., None] * torch.exp(expo) * dtc[:, :, None, :, :]  # (B,NC,i,j,H)
     xf = xh.float()
     y_intra = torch.einsum("bnijh,bnjhp->bnihp", wts, xf)
@@ -154,6 +156,7 @@ def mamba_prefill(p: Mamba2, s: MambaSpec, u: torch.Tensor, return_cache: bool =
     s_c = torch.einsum("bnjm,bnjhp->bnhmp", bg.float(), xf * w_state[..., None])
     chunk_decay = torch.exp(last[:, :, 0, :])                       # (B,NC,H)
     hstate = torch.zeros((bsz, h, n, pdim), dtype=torch.float32, device=u.device)
+    hstate = place_as(replicated_like(s_c, hstate), s_c[:, 0])
     h_before = []
     for c in range(nc):
         h_before.append(hstate)
@@ -245,9 +248,8 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
 
 
 def _block_diag(wp: torch.Tensor, x: torch.Tensor, nb: int) -> torch.Tensor:
-    b, sl, w = x.shape
-    xb = x.reshape(b, sl, nb, w // nb)
-    return torch.einsum("bsnk,nkl->bsnl", xb, wp).reshape(b, sl, w)
+    xb = unflatten(x, -1, (nb, x.shape[-1] // nb))
+    return flatten(torch.einsum("bsnk,nkl->bsnl", xb, wp), 2)
 
 
 def _gates(p: RGLRU, s: RGLRUSpec, xc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -279,6 +281,7 @@ def rglru_prefill(p: RGLRU, s: RGLRUSpec, u: torch.Tensor, return_cache: bool = 
     xz = dense(p.in_proj, u)
     xb, gate = xz[..., : s.width], xz[..., s.width :]
     xc = _causal_conv(xb, p.conv_w, p.conv_b)
+    xc = shard(xc, "batch", "seq", "act_d_ff")
     a, bvec = _gates(p, s, xc)
     h = _linear_scan(a, bvec)                                       # h_t with h_0 = 0
     y = h.to(u.dtype) * F.gelu(gate, approximate="tanh")

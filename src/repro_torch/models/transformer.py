@@ -30,6 +30,9 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (
+    empty_stacked, flatten, local_region, replicated_like, shard, unflatten, whole_on, write_slice,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
@@ -180,12 +183,13 @@ def init_block(gen, cfg: ModelConfig, kind: str, device=None) -> Block:
 
 # ------------------------------------------------------ full-seq block fwd --
 def _pad_seq(t: torch.Tensor, smax: int) -> torch.Tensor:
-    """Pad a (B, S, ...) cache tensor out to smax slots."""
+    """Pad a (B, S, ...) cache tensor out to smax slots (on each rank's
+    shard: a prefill's sequence is whole on every rank)."""
     s = t.shape[1]
     if smax <= s:
         return t
     pad = [0, 0] * (t.ndim - 2) + [0, smax - s]
-    return F.pad(t, pad)
+    return local_region(lambda x: F.pad(x, pad), whole_on(t, 1))
 
 
 def block_fwd(p: Block, cfg: ModelConfig, kind: str, x, positions, want_cache: bool, smax: int = 0):
@@ -240,17 +244,20 @@ def _ring_cache_from_prefill(cfg: ModelConfig, k, v) -> dict[str, torch.Tensor]:
     if sl >= w:
         absi = torch.arange(sl - w, sl, device=k.device)
         slots = absi % w
-        rk = torch.zeros((b, w, kh, hd), dtype=k.dtype, device=k.device)
-        rv = torch.zeros((b, w, kh, hd), dtype=v.dtype, device=v.device)
-        rk[:, slots] = k[:, sl - w :]
-        rv[:, slots] = v[:, sl - w :]
+
+        def ring(t):  # per batch row and head: a rank's shard is a whole ring
+            r = torch.zeros((t.shape[0], w, *t.shape[2:]), dtype=t.dtype, device=t.device)
+            r[:, slots] = t[:, sl - w :]
+            return r
+
+        rk, rv = local_region(ring, k), local_region(ring, v)
         pos_idx = torch.zeros((w,), dtype=torch.int32, device=k.device)
         pos_idx[slots] = absi.to(torch.int32)
     else:
         rk, rv = _pad_seq(k, w), _pad_seq(v, w)
         pos_idx = torch.cat([torch.arange(sl, dtype=torch.int32, device=k.device),
                              torch.full((w - sl,), -1, dtype=torch.int32, device=k.device)])
-    return {"k": rk, "v": rv, "pos_idx": pos_idx}
+    return {"k": rk, "v": rv, "pos_idx": replicated_like(k, pos_idx)}
 
 
 # -------------------------------------------------------------- decode fwd --
@@ -290,27 +297,25 @@ def _local_decode(p: L.Attention, cfg: ModelConfig, h, cache, pos: int):
     spec = _attn_spec(cfg, True)
     b, one, _ = h.shape
     w = cfg.window
-    q = L.dense(p.wq, h).reshape(b, one, spec.n_heads, spec.head_dim)
-    k = L.dense(p.wk, h).reshape(b, one, spec.n_kv_heads, spec.head_dim)
-    v = L.dense(p.wv, h).reshape(b, one, spec.n_kv_heads, spec.head_dim)
+    q = unflatten(L.dense(p.wq, h), -1, (spec.n_heads, spec.head_dim))
+    k = unflatten(L.dense(p.wk, h), -1, (spec.n_kv_heads, spec.head_dim))
+    v = unflatten(L.dense(p.wv, h), -1, (spec.n_kv_heads, spec.head_dim))
     pvec = torch.full((b, one), pos, dtype=torch.int32, device=h.device)
     q = L.apply_rope(q, pvec, spec.rope_theta)
     k = L.apply_rope(k, pvec, spec.rope_theta)
     slot = pos % w
     ck, cv, pidx = cache["k"], cache["v"], cache["pos_idx"]
-    ck[:, slot : slot + one] = L._kv_quant(k, ck.dtype)
-    cv[:, slot : slot + one] = L._kv_quant(v, cv.dtype)
-    pidx[slot] = pos
+    write_slice(ck, 1, slot, L._kv_quant(k, ck.dtype))
+    write_slice(cv, 1, slot, L._kv_quant(v, cv.dtype))
+    write_slice(pidx, 0, slot, torch.full((1,), pos, dtype=pidx.dtype, device=h.device))
     ok = (pidx <= pos) & (pidx > pos - w) & (pidx >= 0)              # (w,)
     rep = spec.n_heads // spec.n_kv_heads
-    qg = q.reshape(b, one, spec.n_kv_heads, rep, spec.head_dim)
+    qg = unflatten(q, 2, (spec.n_kv_heads, rep))
     scores = torch.einsum("bqkrh,bskh->bkrqs", qg.float(), L._kv_dequant(ck).float())
     scores = scores / (spec.head_dim ** 0.5)
-    scores = torch.where(ok, scores, -math.inf)
+    scores = torch.where(replicated_like(scores, ok), scores, -math.inf)
     attn = torch.softmax(scores, dim=-1)
-    o = torch.einsum(
-        "bkrqs,bskh->bqkrh", attn, L._kv_dequant(cv).float()
-    ).to(h.dtype).reshape(b, one, spec.n_heads * spec.head_dim)
+    o = flatten(torch.einsum("bkrqs,bskh->bqkrh", attn, L._kv_dequant(cv).float()).to(h.dtype), 2)
     y = L.dense(p.wo, o)
     return y, {"k": ck, "v": cv, "pos_idx": pidx}
 
@@ -391,9 +396,11 @@ def decoder_hidden(params: DecoderLM, cfg: ModelConfig, x, positions):
     pl = cfg.pattern_len
 
     def group_body(x, aux, *blocks):
+        x = shard(x, "batch", "residual_seq", None)
         for blk, kind in zip(blocks, cfg.block_pattern):
             x, _, a = block_fwd(blk, cfg, kind, x, positions, want_cache=False)
             aux = aux + a
+        x = shard(x, "batch", "residual_seq", None)
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -419,8 +426,8 @@ def decoder_prefill(params: DecoderLM, cfg: ModelConfig, x, positions, smax: int
             x, c, _ = block_fwd(params.blocks[g * pl + i], cfg, kind, x, positions, want_cache=True, smax=smax)
             for name, t in c.items():
                 if name not in scanned[i]:
-                    scanned[i][name] = torch.empty((cfg.n_groups, *t.shape), dtype=t.dtype, device=t.device)
-                scanned[i][name][g] = t
+                    scanned[i][name] = empty_stacked(cfg.n_groups, t)
+                write_slice(scanned[i][name], 0, g, t.unsqueeze(0))
     tail = []
     for i, kind in enumerate(cfg.tail_blocks):
         x, c, _ = block_fwd(params.tail[i], cfg, kind, x, positions, want_cache=True, smax=smax)
@@ -446,7 +453,7 @@ def decoder_decode(params: DecoderLM, cfg: ModelConfig, caches, x, pos: int):
 def logits_from_hidden(params: DecoderLM, cfg: ModelConfig, hidden):
     if cfg.tie_embeddings:
         return L.unembed(params.embed, hidden)
-    return L.dense(params.lm_head, hidden)
+    return shard(L.dense(params.lm_head, hidden), "batch", "seq", "act_vocab")
 
 
 def decoder_cache_specs(cfg: ModelConfig, batch: int, smax: int):

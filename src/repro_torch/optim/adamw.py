@@ -22,6 +22,8 @@ from collections.abc import Mapping
 
 import torch
 
+from repro_torch.distributed.sharding import replicated_like
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -37,15 +39,16 @@ class AdamWConfig:
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return torch.zeros_like(p, dtype=torch.float32)
 
 
 def adamw_init(params: Mapping[str, torch.Tensor], cfg: AdamWConfig) -> dict:
     """Zero moments and an fp32 master copy of every parameter, on the
-    parameters' devices."""
+    parameters' devices (placed as the parameters are, for DTensors; the
+    step replicated)."""
     first = next(iter(params.values()))
     state = {
-        "step": torch.zeros((), dtype=torch.int32, device=first.device),
+        "step": replicated_like(first, torch.zeros((), dtype=torch.int32, device=first.device)),
         "mu": {n: _zeros_f32(p) for n, p in params.items()},
         "nu": {n: _zeros_f32(p) for n, p in params.items()},
         "master": {n: p.detach().to(torch.float32, copy=True) for n, p in params.items()},

@@ -6,6 +6,7 @@ accounting, and a checkpoint written by either package restores in the
 other. Everything compared is bytes or integers: tolerance 0.
 """
 
+import collections
 import json
 import sys
 from pathlib import Path
@@ -170,6 +171,88 @@ def test_leaf_keys_spell_what_jax_spells():
         "/".join(str(p) for p in path)
         for path, _ in jax.tree_util.tree_flatten_with_path(_to_jax(host))[0]
     ]
+
+
+_Pair = collections.namedtuple("_Pair", ["second", "first"])
+
+
+def _bf16_leaf() -> np.ndarray:
+    return np.arange(40_000, dtype=np.float32).astype(jnp.bfloat16)
+
+
+def _tree_parity(make_tree):
+    """Save ``make_tree()`` twice through both checkpointers (the cluster
+    of ``test_numpy_leaves_take_the_device_path_as_in_reference``) and hold
+    the port to the reference: leaf keys, MANIFEST bytes, stored bytes,
+    written / ref-only counts, bytes sent, launches, and the type and
+    values ``restore(like=...)`` returns. Returns the port's stats."""
+    tc = tcore.DedupCluster.create(3, chunking=tcore.ChunkingSpec("fixed", 16 * 1024))
+    jc = jcore.DedupCluster.create(3, chunking=jcore.ChunkingSpec("fixed", 16 * 1024))
+    tck = DedupCheckpointer(tc, CheckpointConfig(**_CFG), device="cpu")
+    jck = JCheckpointer(jc, JConfig(**_CFG))
+    tree = make_tree()
+    assert [k for k, _ in _leaf_paths(tree)] == [
+        "/".join(str(p) for p in path) for path, _ in jax.tree_util.tree_flatten_with_path(tree)[0]
+    ]
+    for name in ("a", "b"):
+        tm, jm = tck.save(name, make_tree()), jck.save(name, make_tree())
+        assert tm == jm
+        mname = f"ckpt/{name}/MANIFEST"
+        assert tc.read_object(mname) == jc.read_object(mname)
+        assert _stored(tc, tm) == _stored(jc, jm)
+    assert tck.stats == jck.stats
+    tback, jback = tck.restore("b", like=tree), jck.restore("b", like=tree)
+    assert jax.tree_util.tree_structure(jback) == jax.tree_util.tree_structure(tree)
+    _same_containers(tback, jback)
+    for (tk, tv), (jk, jv) in zip(_leaf_paths(tback), _leaf_paths(jback)):
+        assert tk == jk
+        want = np.asarray(jv)
+        got = tv.view(torch.uint16).numpy() if tv.dtype == torch.bfloat16 else tv.numpy()
+        np.testing.assert_array_equal(got, want.view(np.uint16) if want.dtype.name == "bfloat16" else want)
+    return tck.stats
+
+
+def _same_containers(a, b):
+    assert type(a) is type(b) or (isinstance(a, torch.Tensor) and not isinstance(b, (dict, list, tuple)))
+    if isinstance(a, dict):
+        assert list(a) == list(b)
+        for k in a:
+            _same_containers(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same_containers(x, y)
+
+
+def test_numpy_bfloat16_leaf_takes_the_device_path_as_in_reference():
+    """ROADMAP C1: a numpy bfloat16 leaf (``ml_dtypes``, kind "V") is
+    written once and then by reference, as the reference does."""
+    stats = _tree_parity(lambda: {"w": _bf16_leaf()})
+    assert (stats["leaves_written"], stats["leaves_ref_only"]) == (1, 1)
+    assert stats["bytes_sent"] == 80_043
+    assert (stats["cdc_launches"], stats["fp_launches"]) == (2, 2)
+
+
+def test_namedtuple_tree_keys_and_restore_match_reference():
+    """ROADMAP C2: a namedtuple's fields are keyed ``.name`` and it is
+    rebuilt as its own type, in save and in ``restore(like=...)``."""
+    stats = _tree_parity(lambda: {
+        "pair": _Pair(np.arange(300, dtype=np.int32), _Pair(np.ones(7, np.float32), _bf16_leaf()[:9])),
+        "w": np.arange(50, dtype=np.float32),
+    })
+    assert (stats["leaves_written"], stats["leaves_ref_only"]) == (4, 4)
+
+
+def test_ordered_dict_keeps_its_order_as_in_reference():
+    """ROADMAP C3: an ``OrderedDict`` is walked in its own order (leaf keys,
+    MANIFEST bytes) and restored as an ``OrderedDict``; a plain dict inside
+    it is still sorted."""
+    stats = _tree_parity(lambda: collections.OrderedDict(
+        z=np.arange(20, dtype=np.float32),
+        a={"y": np.ones(3, np.int32), "b": np.zeros(5, np.uint8)},
+        m=collections.OrderedDict(q=np.full(4, 2, np.int32), c=np.arange(6, dtype=np.float32)),
+    ))
+    assert (stats["leaves_written"], stats["leaves_ref_only"]) == (5, 5)
 
 
 def test_layer_save_resave_perturb_restore_matches_reference():

@@ -166,8 +166,14 @@ def test_serve_launcher_prints_the_jax_lines(capsys, monkeypatch):
     want = capsys.readouterr().out
     tserve.main([*flags, "--device", "cpu"])
     assert capsys.readouterr().out == want
-    with pytest.raises(SystemExit, match="A5"):
-        tserve.main([*flags, "--dryrun"])
-    # --shape only sizes the reference's dry run, so the port refuses it
-    with pytest.raises(SystemExit):
-        tserve.main([*flags, "--shape", "decode_32k"])
+    # --dryrun re-execs the port's dry run as the reference re-execs its
+    # own, at --shape (default decode_32k); the run itself is
+    # tests/test_torch_dryrun.py's
+    calls = []
+    monkeypatch.setattr("subprocess.call", lambda cmd, env=None: calls.append(cmd) or 0)
+    for extra, want_shape in (([], "decode_32k"), (["--shape", "long_500k"], "long_500k")):
+        with pytest.raises(SystemExit) as exit_:
+            tserve.main([*flags, "--dryrun", *extra])
+        assert exit_.value.code == 0
+        assert calls.pop()[1:] == ["-m", "repro_torch.launch.dryrun", "--arch", flags[1],
+                                   "--shape", want_shape, "--force"]

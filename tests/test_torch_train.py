@@ -556,11 +556,17 @@ def test_train_launcher_prints_the_jax_lines(capsys, monkeypatch):
     assert _mask_floats(got) == _mask_floats(want)
     assert got.splitlines()[-3] == want.splitlines()[-3] == "checkpoints: ['step-2', 'step-4']"
     assert got.splitlines()[-1] == want.splitlines()[-1]  # ckpt stats
-    with pytest.raises(SystemExit, match="A5"):
-        ttrain.main([*flags, "--dryrun"])
-    # --shape only sizes the reference's dry run, so the port refuses it
-    with pytest.raises(SystemExit):
-        ttrain.main([*flags, "--shape", "train_4k"])
+    # --dryrun re-execs the port's dry run as the reference re-execs its
+    # own, at --shape (default train_4k); the run itself is
+    # tests/test_torch_dryrun.py's
+    calls = []
+    monkeypatch.setattr("subprocess.call", lambda cmd, env=None: calls.append(cmd) or 0)
+    for extra, want_shape in (([], "train_4k"), (["--shape", "prefill_32k"], "prefill_32k")):
+        with pytest.raises(SystemExit) as exit_:
+            ttrain.main([*flags, "--dryrun", *extra])
+        assert exit_.value.code == 0
+        assert calls.pop()[1:] == ["-m", "repro_torch.launch.dryrun", "--arch", flags[1],
+                                   "--shape", want_shape, "--force"]
 
 
 def test_train_launcher_resumes(capsys, monkeypatch):
