@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the dedup checkpoint
 save, training with dedup checkpoints at the full width of
-LLaVA-NeXT-Mistral-7B, Qwen2.5-32B prefill and prefix-cache serving at
-full width, the sliding-window families (Gemma3-12B, RecurrentGemma-2B),
-Qwen1.5-MoE-A2.7B, Mamba2-1.3B and Whisper-tiny, and MiniCPM3-4B's
+LLaVA-NeXT-Mistral-7B, Qwen1.5-MoE-A2.7B and Mamba2-1.3B, Qwen2.5-32B
+prefill and prefix-cache serving at full width, the sliding-window
+families (Gemma3-12B, RecurrentGemma-2B), Qwen1.5-MoE-A2.7B, Mamba2-1.3B
+and Whisper-tiny, and MiniCPM3-4B's
 multi-head latent attention at full width, and the mesh and dry-run layer
 (a (1, 1) mesh over the card, the production mesh's dry runs).
 
@@ -35,24 +36,32 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    window-hash kernel's device time (``torch.profiler``);
    hold the cut kernel against the twin on ``bitmap_route_wave`` too, so
    both of its routes run (the main path takes only the list route);
-4b. the train path at full width: LLaVA-NeXT-Mistral-7B's backbone from
-   the port's registry, 2 of its 32 layers, bf16, ``attn_impl="dense"``,
-   ``remat="full"``, random weights from ``--seed``; shape ``train_4k``
-   (576 bf16 patch embeddings + 3,520 text tokens from
-   ``SyntheticLMData``), global batch 2 in 2 microbatches, AdamW; the state
-   (9.78 GB, 49 leaves) checkpointed by ``train_loop``'s hook through
-   ``DedupCheckpointer`` on ``DedupCluster.create(4, replicas=2,
-   chunking=ChunkingSpec("fixed", 256 KiB))``. ``examples/train_e2e.py``'s
+4b-4d. the train path at full width, cut in depth and batch only
+   (``TRAIN_PHASES``, ``train_phase``), bf16, ``attn_impl="dense"``,
+   ``remat="full"``, the port's own random init from ``--seed``, shape
+   ``train_4k`` from ``SyntheticLMData``, global batch 2 in 2
+   microbatches, AdamW; the state checkpointed by ``train_loop``'s hook
+   through ``DedupCheckpointer`` on ``DedupCluster.create(4, replicas=2,
+   chunking=ChunkingSpec("fixed", 256 KiB))``. 4b: LLaVA-NeXT-Mistral-7B's
+   backbone at 2 of its 32 layers (576 bf16 patch embeddings + 3,520 text
+   tokens; 9.78 GB of state, 49 leaves) with ``examples/train_e2e.py``'s
    traffic (``train_traffic``): steps 0-1 saving step-2, a node crash,
-   ``add_node`` and ``scrub``, a restore of step-2 (bitwise against the
-   live state, the same loss on step 2's batch), an identical re-save
-   (all ref-only, 0 B sent), steps 2-3 resumed saving step-4. Every save
-   makes 1 cut + 1 fingerprint launch; the counts are set to 0 just
-   before the traffic and read just after. Then the cut and fingerprint
-   kernels are held against their twins on the train state's wave (every
-   stream's positions and counts, every fingerprint row) and timed there.
-   Everything is freed before phase 5 (``torch.cuda.memory_allocated()``
-   back to its level);
+   ``add_node`` and ``scrub``, a restore of step-2, an identical re-save,
+   steps 2-3 resumed saving step-4. 4c: Qwen1.5-MoE-A2.7B at 1 of its 24
+   layers (60 experts top-4, capacity factor 1.25, groups of 256; 16.7 GB
+   of state) and 4d: Mamba2-1.3B at 8 of its 48 (4.3 GB), with
+   ``family_train_traffic``: steps 0-1 saving step-2, an identical re-save
+   of the live state, a restore of step-2. Each restore is bitwise the
+   live state with the same loss on step 2's batch, each re-save all
+   ref-only with 0 B sent; the counts are set to 0 just before the
+   traffic and read just after: 1 cut + 1 fingerprint launch a save, no
+   flash or window-hash launch. Then one more step under the profiler,
+   its device time by operation (``profile_step_by_op``,
+   ``step_categories``), the aux loss and layer 0's drop share (MoE), and
+   the cut and fingerprint kernels held against their twins on the train
+   state's wave (every stream's positions and counts, every fingerprint
+   row) and timed there. Each phase must leave nothing allocated on the
+   card (``torch.cuda.memory_allocated()`` back to its level);
 5. hold the flash-attention kernel against its plain version on the card:
    the (causal, window) x (H, K) grid, (40, 8) heads at hd 128, float32 and
    bfloat16, Sq != Skv and ragged lengths, counting the elements beyond
@@ -144,9 +153,11 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    no card, started before the build and read after phase 10; each record
    must read ``status: ok``.
 
-It prints ``main_path``, ``train``, ``prefill``, ``serving``, ``family``,
-``mesh_prefill``, ``mesh_save`` and ``dryrun`` JSON lines, a ``kernels`` JSON line, the card's name and power limit from nvidia-smi, and
-last ``{"ok": true, "device": ...}``. It exits non-zero without printing a
+It prints ``main_path``, ``train``, ``train_family``, ``prefill``,
+``serving``, ``family``, ``mesh_prefill``, ``mesh_save`` and ``dryrun``
+JSON lines, a ``phases`` line (each phase's seconds), a ``kernels`` JSON
+line, the card's name and power limit from nvidia-smi, and last ``{"ok":
+true, "device": ...}``. It exits non-zero without printing a
 result when torch sees no CUDA device or the repository's package is not
 beside it.
 """
@@ -754,25 +765,81 @@ def state_bits_differ(a: dict, b: dict) -> list[str]:
             if y is None or x.dtype != y.dtype or x.shape != y.shape or not torch.equal(_bits(x), _bits(y))]
 
 
-def batch_loss(model, params, data, step: int) -> float:
-    """``loss_fn`` on step ``step``'s batch, without autograd."""
+def batch_metrics(model, params, data, step: int) -> dict:
+    """``loss_fn`` on step ``step``'s batch, without autograd: the total
+    loss and the loss function's metrics, as floats."""
     import torch
 
     batch = {k: torch.as_tensor(v, device=model.device) for k, v in data.batch(step).items()}
     with torch.no_grad():
-        return float(model.loss_fn(params, batch)[0])
+        total, metrics = model.loss_fn(params, batch)
+    return {"total_loss": float(total), **{k: float(v) for k, v in metrics.items()}}
 
 
-def train_traffic(model, data, cluster, ckpt, opt, seed: int, sync) -> tuple[dict, dict]:
+def batch_loss(model, params, data, step: int) -> float:
+    """``loss_fn`` on step ``step``'s batch, without autograd."""
+    return batch_metrics(model, params, data, step)["total_loss"]
+
+
+def train_data(cfg, device, seed: int):
+    """Step batches at train_4k, global batch ``TRAIN_BATCH``:
+    ``SyntheticLMData``'s tokens, with the vision stub's patch embeddings
+    (``PatchedLMData``) where the arch has a front end."""
+    from repro_torch.data import SyntheticLMData
+
+    n_front = cfg.n_frontend_tokens
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ - n_front, global_batch=TRAIN_BATCH, seed=seed)
+    return PatchedLMData(data, n_front, cfg.d_model, cfg.param_dtype, device, seed) if n_front else data
+
+
+def check_restore(model, data, ckpt, state, like, live_loss: float, sync) -> tuple[dict, float, float]:
+    """Restore step-2 through ``ckpt`` with ``like=`` (dropped once the
+    restore has read it): bitwise ``state``, and its loss on step 2's batch
+    within 1e-3 relative of ``live_loss``. Returns (the restored state, the
+    restore's seconds, its loss)."""
+    from repro_torch.models.convert import train_state_from_tree
+
+    arch = model.cfg.arch_id
+    sync()
+    t = time.perf_counter()
+    tree = ckpt.ckpt.restore("step-2", like=like)
+    sync()
+    restore_s = time.perf_counter() - t
+    del like
+    restored = train_state_from_tree(tree, model.cfg, model.device)
+    del tree
+    differ = state_bits_differ(state, restored)
+    _check(not differ, f"{arch}: restore of step-2 is not bitwise equal to the live state: {differ[:5]}")
+    loss = batch_loss(model, restored["params"], data, 2)
+    _check(abs(loss - live_loss) <= 1e-3 * abs(live_loss), f"{arch}: step 2's loss: restored {loss} != live {live_loss}")
+    return restored, restore_s, loss
+
+
+def check_resave(ckpt, tree, arch: str) -> None:
+    """Save ``tree``, a state saved as step-2 already, as step-2-again: every
+    leaf ref-only, 0 bytes sent."""
+    ckpt.save("step-2-again", tree)
+    again = ckpt.saves[-1]
+    _check(again["ref_only"] == again["leaves"] and again["bytes_sent"] == 0,
+           f"{arch}: the identical re-save wrote leaves: {again}")
+
+
+def check_saves(ckpt, names: list[str], arch: str) -> None:
+    """The saves made are ``names``, each with 1 cut + 1 fingerprint launch."""
+    _check([s["name"] for s in ckpt.saves] == names, f"{arch}: saves {ckpt.saves}")
+    for s in ckpt.saves:
+        _check((s["cdc_launches"], s["fp_launches"]) == (1, 1), f"{arch}: save {s['name']}: launches {s}")
+
+
+def train_traffic(model, data, cluster, ckpt, opt, seed: int, sync, state=None) -> tuple[dict, dict]:
     """Phase 4b's traffic, after ``examples/train_e2e.py``, through the
-    port's train loop and ``ckpt``, a ``TimedSaves``: steps 0-1 saving
-    step-2; the live loss on step 2's batch; ``crash_node``, ``add_node``,
-    ``scrub``; restore step-2 with ``like=`` (bitwise against the live
-    state, the same loss on step 2's batch within 1e-3 relative); an
-    identical re-save (all ref-only, 0 B sent); steps 2-3 resumed saving
-    step-4. Every save makes 1 cut + 1 fingerprint launch. Returns (the
-    final state, the measurements)."""
-    from repro_torch.models.convert import train_state_from_tree, train_state_to_tree
+    port's train loop and ``ckpt``, a ``TimedSaves``: from ``state``, or a
+    state drawn from ``seed``, steps 0-1 saving step-2; the live metrics on
+    step 2's batch; ``crash_node``, ``add_node``, ``scrub``; a restore of
+    step-2 with a fresh state's layout as ``like=`` (``check_restore``); an
+    identical re-save of the restored state (``check_resave``); steps 2-3
+    resumed saving step-4. Returns (the final state, the measurements)."""
+    from repro_torch.models.convert import train_state_to_tree
     from repro_torch.train import TrainConfig, train_loop
     from repro_torch.train.loop import init_train_state
 
@@ -781,41 +848,52 @@ def train_traffic(model, data, cluster, ckpt, opt, seed: int, sync) -> tuple[dic
     def tcfg(steps: int) -> TrainConfig:
         return TrainConfig(steps=steps, accum=TRAIN_ACCUM, log_every=1, checkpoint_every=2, opt=opt)
 
-    state, hist = train_loop(model, data, tcfg(2), generator=seed, checkpointer=ckpt)
-    live_loss = batch_loss(model, state["params"], data, 2)
+    state, hist = train_loop(model, data, tcfg(2), generator=seed, checkpointer=ckpt, state=state)
+    live = batch_metrics(model, state["params"], data, 2)
     cluster.crash_node("oss3")
     cluster.add_node()
     cluster.scrub()
-    template = train_state_to_tree(init_train_state(model, seed, opt), cfg)
-    sync()
-    t = time.perf_counter()
-    tree = ckpt.ckpt.restore("step-2", like=template)
-    sync()
-    restore_s = time.perf_counter() - t
-    del template
-    restored = train_state_from_tree(tree, cfg, model.device)
-    del tree
-    differ = state_bits_differ(state, restored)
-    _check(not differ, f"restore of step-2 is not bitwise equal to the live state: {differ[:5]}")
-    restored_loss = batch_loss(model, restored["params"], data, 2)
-    _check(abs(restored_loss - live_loss) <= 1e-3 * abs(live_loss),
-           f"step 2's loss: restored {restored_loss} != live {live_loss}")
+    restored, restore_s, restored_loss = check_restore(
+        model, data, ckpt, state, train_state_to_tree(init_train_state(model, seed, opt), cfg),
+        live["total_loss"], sync)
     del state
-    ckpt.save("step-2-again", train_state_to_tree(restored, cfg))
-    again = ckpt.saves[-1]
-    _check(again["ref_only"] == again["leaves"] and again["bytes_sent"] == 0,
-           f"the re-save of the restored state wrote leaves: {again}")
+    check_resave(ckpt, train_state_to_tree(restored, cfg), cfg.arch_id)
     state, hist2 = train_loop(model, data, tcfg(4), checkpointer=ckpt, state=restored, start_step=2)
     losses = [h["loss"] for h in hist + hist2]
-    _check(len(losses) == 4 and all(math.isfinite(x) for x in losses), f"losses {losses}")
-    _check([s["name"] for s in ckpt.saves] == ["step-2", "step-2-again", "step-4"], f"saves {ckpt.saves}")
-    for s in ckpt.saves:
-        _check((s["cdc_launches"], s["fp_launches"]) == (1, 1), f"save {s['name']}: launches {s}")
+    _check(len(losses) == 4 and all(math.isfinite(x) for x in losses), f"{cfg.arch_id}: losses {losses}")
+    check_saves(ckpt, ["step-2", "step-2-again", "step-4"], cfg.arch_id)
     return state, {
         "steps": [{"step": h["step"], "loss": h["loss"], "s": h["sec"]} for h in hist + hist2],
-        "live_loss_step2": live_loss, "restored_loss_step2": restored_loss,
+        "live_step2": live, "restored_loss_step2": restored_loss,
         "saves": ckpt.saves, "restore_s": restore_s,
         "space_savings": cluster.space_savings(),
+    }
+
+
+def family_train_traffic(model, data, cluster, ckpt, opt, seed: int, sync, state=None) -> tuple[dict, dict]:
+    """Phases 4c and 4d's traffic through the port's train loop and
+    ``ckpt``, a ``TimedSaves``: from ``state``, or a state drawn from
+    ``seed``, steps 0-1, whose hook saves step-2; an identical re-save of
+    the live state (``check_resave``); a restore of step-2 with the live
+    tree as ``like=`` (``check_restore``). ``cluster`` is not touched.
+    Returns (the live state, the measurements)."""
+    from repro_torch.models.convert import train_state_to_tree
+    from repro_torch.train import TrainConfig, train_loop
+
+    cfg = model.cfg
+    tcfg = TrainConfig(steps=2, accum=TRAIN_ACCUM, log_every=1, checkpoint_every=2, opt=opt)
+    state, hist = train_loop(model, data, tcfg, generator=seed, checkpointer=ckpt, state=state)
+    losses = [h["loss"] for h in hist]
+    _check(len(losses) == 2 and all(math.isfinite(x) for x in losses), f"{cfg.arch_id}: losses {losses}")
+    check_resave(ckpt, train_state_to_tree(state, cfg), cfg.arch_id)
+    live = batch_metrics(model, state["params"], data, 2)
+    _, restore_s, restored_loss = check_restore(model, data, ckpt, state, train_state_to_tree(state, cfg),
+                                                live["total_loss"], sync)
+    check_saves(ckpt, ["step-2", "step-2-again"], cfg.arch_id)
+    return state, {
+        "steps": [{"step": h["step"], "loss": h["loss"], "s": h["sec"]} for h in hist],
+        "live_step2": live, "restored_loss_step2": restored_loss,
+        "saves": ckpt.saves, "restore_s": restore_s,
     }
 
 
@@ -843,10 +921,11 @@ def _warm_cublas() -> None:
 def train_wave_check(state, cfg, spec, fp_ops_per_word: float) -> dict:
     """The cut and fingerprint kernels at the train path's shapes: the wave
     of the train state's tree, which a save sends through them (49 streams,
-    9.78 GB at full width). Holds the cut positions and counts, and every
-    fingerprint row's fingerprint, against the twins; times the kernels on
-    the card (CUDA events) and the twins on the host clock. Its launches
-    are outside any path's count."""
+    9.78 GB at full width for phase 4b; 77 streams, 16.7 GB, the longest
+    1.245 GB, for phase 4c). Holds the cut positions and counts of every
+    stream, and every fingerprint row's fingerprint, against the twins,
+    and times the twins on the host clock and the kernels on the card
+    (CUDA events). Its launches are outside any path's count."""
     from repro_torch.checkpoint.dedup_ckpt import _leaf_paths
     from repro_torch.kernels import ops
     from repro_torch.kernels.cdc import cdc_cut_positions_cuda
@@ -863,6 +942,7 @@ def train_wave_check(state, cfg, spec, fp_ops_per_word: float) -> dict:
     del cuts
     cut_ms = _timed(lambda: cdc_cut_positions_cuda(streams, **kw), 3)
     wave_bytes = sum(int(s.numel()) for s in streams)
+    longest = max(int(s.numel()) for s in streams)
     cut_bound = cut_bound_ms(wave_bytes, m_cut, len(streams))
     rows, _ = ops.cut_wave_rows(streams, **kw)
     del streams
@@ -880,25 +960,205 @@ def train_wave_check(state, cfg, spec, fp_ops_per_word: float) -> dict:
                 "bound_by": "bytes" if bound[0] >= bound[1] else "operations", "shape": shape}
 
     return {
-        "cdc_cut_positions_cuda": row("cdc_cut", cut_ms, cut_plain_ms, cut_bound,
-                                      f"{n_streams} streams, {wave_bytes} B, {m_cut} cut slots"),
+        "cdc_cut_positions_cuda": {**row("cdc_cut", cut_ms, cut_plain_ms, cut_bound,
+                                         f"{n_streams} streams, {wave_bytes} B, {m_cut} cut slots"),
+                                   "longest_stream_bytes": longest},
         "fingerprint_chunks_cuda": row("fingerprint", fp_ms, fp_plain_ms, fp_bound, f"({c_rows}, {width}) uint32"),
     }
 
 
-def train_phase(seed: int, fp_ops_per_word: float) -> dict:
-    """Phase 4b: the train path at full width. Returns the ``train`` line;
-    the line's ``kernel_launches`` are the train path's counts,
-    ``kernel_check`` the cut and fingerprint kernels against their twins
-    at the train wave's shapes (``train_wave_check``), and
-    ``left_allocated_bytes`` what the phase left allocated on the card
-    after freeing all of it (the caller checks it is 0)."""
+# The train phases at full width, cut in depth (and in batch, 256 -> 2 in 2
+# microbatches) only, shape train_4k: (phase, arch, published depth, depth
+# run, traffic). 4b: LLaVA-NeXT-Mistral-7B's backbone
+# (src/repro/configs/llava_next_mistral_7b.py) 32 -> 2, 9.78 GB of train
+# state, with examples/train_e2e.py's crash, scrub and resume. 4c:
+# Qwen1.5-MoE-A2.7B (qwen2_moe_a2_7b.py) 24 -> 1, as one layer and the
+# untied embeddings are ~1.19 B parameters, 16.7 GB of train state at 14 B a
+# parameter. 4d: Mamba2-1.3B (mamba2_1_3b.py) 48 -> 8, ~4.3 GB.
+TRAIN_PHASES = (
+    ("4b train, LLaVA-NeXT", TRAIN_ARCH, 32, TRAIN_LAYERS, train_traffic),
+    ("4c train, Qwen1.5-MoE", "qwen2-moe-a2.7b", 24, 1, family_train_traffic),
+    ("4d train, Mamba2", "mamba2-1.3b", 48, 8, family_train_traffic),
+)
+
+
+def profile_step_by_op(fn, categories) -> dict:
+    """Run ``fn`` (one train step) once under ``torch.profiler`` with input
+    shapes and a ``record_function`` range around the optimizer's update.
+    Each host operation's own device time goes to its ``op_category`` among
+    ``categories`` (``step_categories``); forward, recompute and backward
+    operations alike (a backward operation works on its forward's
+    shapes). Returns wall ms, device ms, the idle share,
+    device ms and launches by category, and the five kernels with the most
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.train import loop
+
+    update = loop.adamw_update
+
+    def labelled_update(*args, **kw):
+        with record_function("adamw_update"):
+            return update(*args, **kw)
+
+    loop.adamw_update = labelled_update
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        loop.adamw_update = update
+    by_cat = {name: [0.0, 0] for name, _, _ in categories}
+    by_cat["other"] = [0.0, 0]
+    kernels = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+        if not us:
+            continue
+        for k in e.kernels:
+            kernels[k.name[:90]] = kernels.get(k.name[:90], 0.0) + k.duration / 1e3
+        cat = op_category(e, categories)
+        by_cat[cat][0] += us / 1e3
+        by_cat[cat][1] += len(e.kernels)
+    device_ms = sum(ms for ms, _ in by_cat.values())
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": None if not device_ms else 1 - device_ms / wall_ms,
+            "device_ms_by_op": {k: v for k, v in by_cat.items()},
+            "top": sorted(([n, ms] for n, ms in kernels.items()), key=lambda kv: kv[1], reverse=True)[:5]}
+
+
+def op_category(e, categories) -> str:
+    """The category of a profiler event ``e`` (a host operation) among
+    ``categories`` (name, predicate(op name, input shapes), inherited): the
+    first inherited category whose predicate takes ``e`` or its nearest
+    ancestor that one takes; else the first other category whose predicate
+    takes ``e``; else "other"."""
+    inherited = [(name, pred) for name, pred, up in categories if up]
+    up = e
+    while up is not None:
+        shapes = _input_shapes(up.input_shapes)
+        cat = next((name for name, pred in inherited if pred(up.name, shapes)), None)
+        if cat is not None:
+            return cat
+        up = up.cpu_parent
+    shapes = _input_shapes(e.input_shapes)
+    return next((name for name, pred, up in categories if not up and pred(e.name, shapes)), "other")
+
+
+def _input_shapes(shapes) -> list[tuple]:
+    """A profiler event's input shapes as tuples, a tensor list's each."""
+    out = []
+    for s in shapes or []:
+        if isinstance(s, (list, tuple)) and s and all(isinstance(x, (list, tuple)) for x in s):
+            out.extend(tuple(x) for x in s)
+        elif isinstance(s, (list, tuple)) and s:
+            out.append(tuple(s))
+    return out
+
+
+def step_categories(cfg) -> list:
+    """``profile_step_by_op``'s categories of a train step of ``cfg`` at
+    ``TRAIN_SEQ`` positions a microbatch of one sequence: (name,
+    predicate(op name, input shapes), inherited). Inherited, so an
+    operation under them is theirs whatever its shapes:
+    - the optimizer: the ``adamw_update`` range;
+    - the embedding: its gather (``aten::index`` / ``aten::embedding``) and
+      the backward's ``_index_put_impl_`` / ``embedding_dense_backward``,
+      on the (V, D) table (the zero fill of the table's gradient before
+      them goes to the unembedding and loss).
+    The others by an operation's own input shapes:
+    - the unembedding and loss: any operand with a vocabulary-sized dim;
+    - dense attention (where the arch has it): an operand with two S dims
+      (the (S, S) scores), or a ``bmm`` whose operands hold S twice;
+    - MoE: the router by its (T, E) logits or (D, E) weight; the dispatch
+      and combine by an operand holding the groups' E x C slots as one dim,
+      the (G, g x k, E) one-hot choices or the (G, g, E, C) slots; the
+      experts by their (E, D, F) / (E, F, D) weights (also under a leading
+      layer dim), the (G, E, C, .) slot activations, or the batched
+      products' (E, G x C, .) operands (G groups of g tokens);
+    - Mamba-2: the chunk loop by its (B, H, N, P) state; the within-chunk
+      weights by the (B, NC, Q, Q, H) tensor or its (NC x H, Q, Q) batched
+      form; the other fp32 SSD passes by the (B, NC, Q, H, P) activations
+      and the (B, NC, H, N, P) chunk states.
+    Every other operation (projections, norms, the FFN, the conv) is
+    "other"."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    vocab = {cfg.vocab, cfg.padded_vocab}
+    tables = {(v, cfg.d_model) for v in vocab}
+    embed_ops = {"aten::index", "aten::embedding", "aten::_index_put_impl_", "aten::embedding_dense_backward"}
+    seq = TRAIN_SEQ
+    cats = [
+        ("optimizer (adamw_update)", lambda n, sh: n == "adamw_update", True),
+        ("embedding (gather, its backward)", lambda n, sh: n in embed_ops and any(s in tables for s in sh), True),
+        ("unembedding and loss", lambda n, sh: any(vocab & set(s) for s in sh), False),
+    ]
+    if any(kind != "mamba2" for kind in cfg.block_pattern):
+        cats.append(("attention (dense scores)",
+                     lambda n, sh: any(s.count(seq) >= 2 for s in sh) or
+                     (n == "aten::bmm" and sum(s.count(seq) for s in sh) >= 2), False))
+    if cfg.n_experts:
+        spec = T._moe_spec(cfg)
+        e, d, f = spec.n_experts, cfg.d_model, spec.expert_d_ff
+        g = MOE.group_size(spec, seq)
+        c = MOE.capacity(spec, g)
+        n_groups = seq // g
+        weights = {(e, d, f), (e, f, d)}
+        cats += [
+            ("moe router (product, softmax, top-k)",
+             lambda n, sh: any((s[0] == seq and s[-1] == e) or s == (d, e) for s in sh), False),
+            ("moe dispatch and combine (scatters, one-hot products)",
+             lambda n, sh: any(e * c in s or (len(s) == 3 and s[1:] == (g * spec.top_k, e)) or
+                               (len(s) == 4 and s[1:] == (g, e, c)) for s in sh), False),
+            ("moe experts (einsums)",
+             lambda n, sh: any(s[-3:] in weights or (len(s) == 4 and s[1:3] == (e, c)) or
+                               (len(s) == 3 and s[:2] == (e, n_groups * c)) for s in sh), False),
+        ]
+    if "mamba2" in cfg.block_pattern:
+        s_ = T._mamba_spec(cfg)
+        q, h, n_, p = s_.chunk, s_.n_heads, s_.d_state, s_.head_dim
+        nc = seq // q
+        cats += [
+            ("ssd chunk loop (B, H, N, P) state", lambda n, sh: any(len(s) == 4 and s[1:] == (h, n_, p) for s in sh),
+             False),
+            ("ssd within-chunk (B, NC, Q, Q, H) weights",
+             lambda n, sh: any((len(s) == 5 and s[1:] == (nc, q, q, h)) or s == (nc * h, q, q) for s in sh), False),
+            ("ssd other fp32 passes (chunk states, read-out)",
+             lambda n, sh: any(len(s) == 5 and s[1] == nc and s[2:] in {(q, h, p), (h, n_, p)} for s in sh),
+             False),
+        ]
+    return cats
+
+
+def train_phase(arch: str, published_layers: int, layers: int, seed: int, fp_ops_per_word: float,
+                traffic) -> dict:
+    """Phases 4b-4d: ``arch``'s train path at full width and ``layers``
+    layers, bf16, ``attn_impl="dense"``, ``remat="full"``, random weights
+    from ``seed`` (the port's own init); shape train_4k (``train_data``),
+    global batch 2 in 2 microbatches, AdamW; the state checkpointed through
+    ``DedupCheckpointer`` on a 4-node, 2-replica cluster with fixed 256 KiB
+    chunks. ``traffic`` (``train_traffic`` or ``family_train_traffic``)
+    with the counts set to 0 just before and read just after (1 cut + 1
+    fingerprint launch a save, no flash or window hash); every parameter
+    finite after it; then one more step under the profiler
+    (``profile_step_by_op``), the aux loss and (MoE) layer 0's drop share on
+    step 2's batch, and the cut and fingerprint kernels held against their
+    twins and timed on the state's wave (``train_wave_check``). Returns
+    the phase's line; ``left_allocated_bytes`` is what the phase left on
+    the card after freeing all of it (the caller checks it is 0)."""
     import torch
 
     from repro_torch.checkpoint import CheckpointConfig, DedupCheckpointer
     from repro_torch.configs import get_config
     from repro_torch.core import ChunkingSpec, DedupCluster
-    from repro_torch.data import SyntheticLMData
     from repro_torch.kernels import ops
     from repro_torch.kernels.cdc import cdc_cut_positions_cuda, cdc_hashes_cuda
     from repro_torch.kernels.fingerprint import fingerprint_chunks_cuda
@@ -907,16 +1167,14 @@ def train_phase(seed: int, fp_ops_per_word: float) -> dict:
     from repro_torch.optim import AdamWConfig
     from repro_torch.train.loop import build_train_step
 
+    t_phase = time.perf_counter()
     _warm_cublas()
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     mem_before = torch.cuda.memory_allocated()
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS, attn_impl="dense", remat="full")
+    rss_before = _rss_bytes()[0]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, attn_impl="dense", remat="full")
     model = build_model(cfg)
-    n_front = cfg.n_frontend_tokens
-    data = PatchedLMData(SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ - n_front,
-                                         global_batch=TRAIN_BATCH, seed=seed),
-                         n_front, cfg.d_model, cfg.param_dtype, model.device, seed)
+    data = train_data(cfg, model.device, seed)
     cluster = DedupCluster.create(4, replicas=2, chunking=ChunkingSpec("fixed", 256 * 1024))
     ckpt = TimedSaves(DedupCheckpointer(cluster, CheckpointConfig()), torch.cuda.synchronize)
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
@@ -928,54 +1186,72 @@ def train_phase(seed: int, fp_ops_per_word: float) -> dict:
     for kind in ops.launch_counts:
         ops.launch_counts[kind] = 0
     t = time.perf_counter()
-    state, line = train_traffic(model, data, cluster, ckpt, opt, seed, torch.cuda.synchronize)
+    state, line = traffic(model, data, cluster, ckpt, opt, seed, torch.cuda.synchronize)
     traffic_s = time.perf_counter() - t
     launches = {k.__name__: k.launches for k in kernels}
     n_saves = len(ckpt.saves)
-    _check(launches["cdc_cut_positions_cuda"] == n_saves and launches["fingerprint_chunks_cuda"] == n_saves,
-           f"the train path's kernel launches {launches}, want {n_saves} cut and {n_saves} fingerprint")
+    _check(launches == {"cdc_cut_positions_cuda": n_saves, "fingerprint_chunks_cuda": n_saves,
+                        "cdc_hashes_cuda": 0, "flash_attention_cuda": 0},
+           f"{arch}: the train path's kernel launches {launches}, want {n_saves} cut and {n_saves} fingerprint")
     peak = torch.cuda.max_memory_allocated()
     rss = _rss_bytes()
+    nonfinite = [n for n, p in state["params"].named_parameters() if not bool(torch.isfinite(p).all())]
+    _check(not nonfinite, f"{arch}: parameters not finite after the traffic: {nonfinite[:5]}")
 
-    # One more step (step 4) under the profiler, outside the counts.
+    extra = {}
+    if cfg.n_experts:
+        tokens = torch.as_tensor(data.batch(2)["tokens"], device=model.device)
+        extra["layer0_drop_share"] = moe_drop_share(state["params"], cfg, tokens)
+        extra["capacity_factor"], extra["moe_group"] = cfg.capacity_factor, cfg.moe_group
+        del tokens
+    # One more step, on the batch of the step the state is at, under the
+    # profiler, outside the counts.
     step_fn = build_train_step(model, opt, TRAIN_ACCUM)
-    batch = {k: torch.as_tensor(v, device=model.device) for k, v in data.batch(4).items()}
+    batch = {k: torch.as_tensor(v, device=model.device) for k, v in data.batch(len(line["steps"])).items()}
     torch.cuda.reset_peak_memory_stats()
-    profile = device_profile(lambda: float(step_fn(state, batch)[1]["total_loss"]))
+    profile = profile_step_by_op(lambda: float(step_fn(state, batch)[1]["total_loss"]), step_categories(cfg))
     step_peak = torch.cuda.max_memory_allocated()
-    kernel_check = train_wave_check(state, cfg, ckpt.ckpt.spec, fp_ops_per_word)
+    del batch, step_fn
+    _free()
+    wave = train_wave_check(state, cfg, ckpt.ckpt.spec, fp_ops_per_word)
 
     n_params = sum(p.numel() for p in state["params"].parameters())
     state_bytes = sum(p.numel() * p.element_size() for p in state["params"].parameters()) + \
         sum(t.numel() * t.element_size() for k in ("master", "mu", "nu") for t in state["opt"][k].values())
-    positions = TRAIN_BATCH * TRAIN_SEQ
+    n_front = cfg.n_frontend_tokens
+    positions = f"{n_front} patch + {TRAIN_SEQ - n_front} text positions" if n_front else f"{TRAIN_SEQ} positions"
     step_s = [s["s"] for s in line["steps"]]
     line = {
-        "model": f"{cfg.arch_id}, {cfg.n_layers} layers, full width, {cfg.param_dtype}, attn_impl "
-                 f"{cfg.attn_impl}, remat {cfg.remat}, random weights",
-        "shape": f"train_4k: {n_front} patch + {TRAIN_SEQ - n_front} text positions, global batch "
-                 f"{TRAIN_BATCH} in {TRAIN_ACCUM} microbatches",
-        "reduced": {"n_layers": [32, TRAIN_LAYERS], "global_batch": [256, TRAIN_BATCH]},
+        "model": f"{arch}, {cfg.n_layers} layers, full width, {cfg.param_dtype}, attn_impl {cfg.attn_impl}, "
+                 f"remat {cfg.remat}, random weights (the port's init)",
+        "shape": f"train_4k: {positions}, global batch {TRAIN_BATCH} in {TRAIN_ACCUM} microbatches",
+        "reduced": {"n_layers": [published_layers, layers], "global_batch": [256, TRAIN_BATCH]},
         "cluster": "4 nodes, 2 replicas, fixed 256 KiB chunks; device CDC (CheckpointConfig())",
-        "params": n_params, "state_bytes": state_bytes,
-        "leaves": ckpt.saves[0]["leaves"],
+        "params": n_params, "state_bytes": state_bytes, "leaves": ckpt.saves[0]["leaves"],
         **line,
-        "step_s": step_s,
-        "tokens_per_s": [positions / s for s in step_s],
-        "profile_step4": profile,
+        "restore_bitwise": True,
+        "step_s": step_s, "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / s for s in step_s],
+        "aux_loss_step2": line["live_step2"]["aux_loss"],
+        **extra,
+        "save_s": {s["name"]: s["s"] for s in ckpt.saves},
+        "bytes_sent": {s["name"]: s["bytes_sent"] for s in ckpt.saves},
+        "profile_step": profile,
+        # the profiler's own host work (input shapes, thousands of launches)
+        # stretches the profiled step: its device time over the last
+        # unprofiled step's wall time is the idle share without it
+        "idle_share_of_unprofiled_step":
+            None if not profile["device_ms"] else 1 - profile["device_ms"] / 1e3 / step_s[-1],
         "step_peak_memory_bytes": step_peak,
-        "peak_memory_bytes": peak,
-        "traffic_s": traffic_s,
-        "bytes_sent": sum(s["bytes_sent"] for s in ckpt.saves),
-        "host_rss_bytes": {"current": rss[0], "peak": rss[1]},
-        "kernel_launches": launches,
-        "kernel_check": kernel_check,
+        "peak_memory_bytes": peak, "traffic_s": traffic_s,
+        "host_rss_bytes": {"before": rss_before, "current": rss[0], "peak": rss[1]},
+        "kernel_launches": launches, "kernel_wave": wave,
     }
-    del state, batch, step_fn, ckpt, cluster, model, data
-    gc.collect()
-    torch.cuda.empty_cache()
+    _check(math.isfinite(line["aux_loss_step2"]), f"{arch}: aux loss {line['aux_loss_step2']}")
+    del state, ckpt, cluster, model, data
+    _free()
     line["left_allocated_bytes"] = torch.cuda.memory_allocated() - mem_before
     line["host_rss_bytes"]["after_free"] = _rss_bytes()[0]
+    line["phase_s"] = time.perf_counter() - t_phase
     return line
 
 
@@ -2272,6 +2548,14 @@ def main() -> int:
     dev = torch.device("cuda")
 
     dry_runs = start_dry_runs()
+    phases = {}
+    t_start = t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        phases[name] = now - t_phase
+        t_phase = now
 
     # ------------------------------------------------------------ 1. build
     t0 = time.perf_counter()
@@ -2291,21 +2575,28 @@ def main() -> int:
     print(f"fp_accumulate SASS: its loop issues {fp_issued_per_word} instructions per word, "
           f"{fp_ops_per_word} of them integer operations on the loaded word (the bound's count)")
 
+    phase_done("1 build")
     rows_out = dedup_phases(args.seed, fp_ops_per_word, fp_issued_per_word)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("2-4 dedup kernels and checkpoint path")
 
-    # ------------------------------------ 4b. the train path at full width
-    train = train_phase(args.seed, fp_ops_per_word)
-    print("train " + json.dumps(train))
-    _check(train["left_allocated_bytes"] == 0, f"the train phase left {train['left_allocated_bytes']} B on the card")
+    # ------------- 4b-4d. the train path at full width, three families
     # ``launches`` stays the checkpoint path's count, as the row's other
-    # numbers are of its wave; the train path's count and its wave's numbers
-    # ride beside them.
+    # numbers are of its wave; each train path's count and its wave's
+    # numbers ride beside them.
+    train_lines = {}
     for row in rows_out:
-        row["launches_by_path"] = {"checkpoint": row["launches"], "train": train["kernel_launches"][row["name"]]}
-        if row["name"] in train["kernel_check"]:
-            row["train_wave"] = train["kernel_check"][row["name"]]
+        row["launches_by_path"] = {"checkpoint": row["launches"]}
+    for name, arch, published, layers, traffic in TRAIN_PHASES:
+        line = train_lines[arch] = train_phase(arch, published, layers, args.seed, fp_ops_per_word, traffic)
+        print(("train " if traffic is train_traffic else "train_family ") + json.dumps(line))
+        _check(line["left_allocated_bytes"] == 0, f"the {arch} train phase left {line['left_allocated_bytes']} B")
+        for row in rows_out:
+            row["launches_by_path"][f"{arch} train"] = line["kernel_launches"][row["name"]]
+            if row["name"] in line["kernel_wave"]:
+                row.setdefault("train_wave_by_arch", {})[arch] = line["kernel_wave"][row["name"]]
+        phase_done(name)
 
     # --------------------------------------- 5. flash kernel vs plain version
     from repro_torch.configs import get_config
@@ -2319,6 +2610,7 @@ def main() -> int:
                                            "max_err_ratio": check.max_err_ratio, "rtol": FLASH_RTOL}))
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("5 flash grid")
 
     # ------------------------------------ 6. prefill at full width, 64 layers
     model = build_model(dataclasses.replace(get_config("qwen2.5-32b"), attn_impl="chunked"))
@@ -2343,6 +2635,7 @@ def main() -> int:
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("6, 7, 11b, 11c Qwen2.5-32B prefill, serving, mesh")
 
     # ------------------- 8. the sliding-window families at full width
     flash_row["launches_by_path"] = {"qwen2.5-32b prefill": flash_row["launches"]}
@@ -2354,6 +2647,7 @@ def main() -> int:
                f"the {arch} phase left {line['left_allocated_bytes']} B on the card")
         flash_row["launches_by_path"][f"{arch} prefill"] = line["flash_launches"]["prefill"]
         flash_row["hd256"].update(entries)
+    phase_done("8 sliding-window families")
 
     # ------------------- 9. MoE, Mamba-2 and enc-dec at full width
     line, flash_row["moe"] = moe_phase(check, gen)
@@ -2364,6 +2658,7 @@ def main() -> int:
         print("family " + json.dumps(line))
     for line in lines:
         _check(line["left_allocated_bytes"] == 0, f"{line['model']} left {line['left_allocated_bytes']} B on the card")
+    phase_done("9 MoE, Mamba2, Whisper")
 
     # ------------------- 10. multi-head latent attention at full width
     line, flash_row["mla"] = mla_phase(check, gen)
@@ -2371,6 +2666,9 @@ def main() -> int:
     _check(line["left_allocated_bytes"] == 0, f"{line['model']} left {line['left_allocated_bytes']} B on the card")
     flash_row["launches_by_path"][f"{MLA_ARCH} prefill"] = line["flash_launches"]["prefill"]
     flash_row["launches_by_path"]["qwen2.5-32b prefill on a (1, 1) mesh"] = flash_mesh_launches
+    for arch, line in train_lines.items():
+        flash_row["launches_by_path"][f"{arch} train"] = line["kernel_launches"]["flash_attention_cuda"]
+    phase_done("10 MiniCPM3-4B")
 
     # ------------------------------- 11a. the dry runs (host passes)
     t = time.perf_counter()
@@ -2379,6 +2677,9 @@ def main() -> int:
     t11 += time.perf_counter() - t
     print(f"phase 11: {t11:.3f} s (11b and 11c on the card, and the wait for 11a's dry runs, "
           "which ran on the host beside the build)")
+    phase_done("11a dry runs (the wait)")
+    phases["total"] = time.perf_counter() - t_start
+    print("phases " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
     flash_row.update(mismatches=check.mismatches, cases=check.cases, max_abs_err=max(check.max_abs_err.values()),
                      max_abs_err_by_dtype=check.max_abs_err, max_err_ratio=check.max_err_ratio)
     rows_out.append(flash_row)

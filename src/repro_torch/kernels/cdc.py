@@ -50,14 +50,33 @@ def cdc_hashes_plain(data_u8: torch.Tensor) -> torch.Tensor:
     return ref.cdc_hashes(gear_values(data_u8))
 
 
+# The plain window hashes take a longer stream in pieces of this many bytes,
+# each read with the WINDOW - 1 bytes before it (a hash sees only its
+# window): a whole stream's int64 intermediates take ~32 B a byte, ~40 GB
+# for a 1.2 GB stream.
+PLAIN_PIECE = 1 << 27
+
+
+def cdc_boundaries_plain(data_u8: torch.Tensor, mask: int) -> torch.Tensor:
+    """(n,) uint8 bytes of one stream -> (n,) bool window-hash candidates,
+    piece by piece (``PLAIN_PIECE``)."""
+    n = int(data_u8.shape[0])
+    if n <= PLAIN_PIECE:
+        return ref.cdc_boundaries(gear_values(data_u8), mask)
+    out = torch.empty((n,), dtype=torch.bool, device=data_u8.device)
+    for lo in range(0, n, PLAIN_PIECE):
+        hi = min(lo + PLAIN_PIECE, n)
+        back = min(lo, ref.WINDOW - 1)
+        out[lo:hi] = ref.cdc_boundaries(gear_values(data_u8[lo - back : hi]), mask)[back:]
+    return out
+
+
 def cdc_cut_masks_plain(
     streams: list[torch.Tensor], *, mask: int, min_size: int, max_size: int
 ) -> list[torch.Tensor]:
     # Per-stream hashing: each stream sees its own zero prefix window.
     return [
-        ref.cdc_cut_mask(
-            ref.cdc_boundaries(gear_values(s), mask), s.shape[0], min_size, max_size
-        )
+        ref.cdc_cut_mask(cdc_boundaries_plain(s, mask), s.shape[0], min_size, max_size)
         for s in streams
     ]
 

@@ -8,6 +8,7 @@ other. Everything compared is bytes or integers: tolerance 0.
 
 import collections
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -15,6 +16,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # the workers share the host's cores
+    torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 

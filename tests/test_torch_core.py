@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # the workers share the host's cores
+    torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 
 import repro.core as jcore

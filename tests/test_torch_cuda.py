@@ -14,8 +14,10 @@ limit scales with the data, so it still bites on the late rows of long
 causal inputs, whose elements are small.
 """
 
+import contextlib
 import copy
 import dataclasses
+import os
 import sys
 from pathlib import Path
 
@@ -23,6 +25,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # the workers share the host's cores
+    torch.set_num_threads(1)
 
 from repro_torch.configs import get_config
 from repro_torch.core import ChunkingSpec, DedupCluster
@@ -390,13 +394,54 @@ def _rel_rms(got: torch.Tensor, exp: torch.Tensor) -> float:
     return float((got - exp).square().mean().sqrt() / exp.square().mean().sqrt())
 
 
+def _float64_prefill(params, cfg, toks) -> tuple:
+    """A reduced dense decoder's prefill in float64 on the host from the
+    port's parameters (float64 copies): per layer the rotated k it caches,
+    and the last position's logits."""
+    def p64(t):
+        return t.detach().cpu().double()
+
+    def norm(scale, x):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + cfg.norm_eps) * p64(scale)
+
+    def lin(d, x):
+        y = x @ p64(d.w)
+        return y if d.b is None else y + p64(d.b)
+
+    hd, h, kh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    s = toks.shape[1]
+    freqs = 1.0 / (cfg.rope_theta ** (torch.arange(0, hd, 2, dtype=torch.float64) / hd))
+    ang = torch.arange(s, dtype=torch.float64)[:, None] * freqs
+    cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+
+    def rope(x):
+        x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+    x = p64(params.embed.table)[torch.as_tensor(toks).long()]
+    ks, causal = [], torch.ones(s, s, dtype=torch.bool).triu(1)
+    for blk in params.blocks:
+        a = norm(blk.norm1.scale, x)
+        q = rope(lin(blk.attn.wq, a).unflatten(-1, (h, hd)))
+        k = rope(lin(blk.attn.wk, a).unflatten(-1, (kh, hd)))
+        v = lin(blk.attn.wv, a).unflatten(-1, (kh, hd))
+        ks.append(k)
+        sc = torch.einsum("bqhd,bshd->bhqs", q, k.repeat_interleave(h // kh, 2)) / hd ** 0.5
+        w = torch.softmax(sc.masked_fill(causal, -float("inf")), -1)
+        o = torch.einsum("bhqs,bshd->bqhd", w, v.repeat_interleave(h // kh, 2))
+        x = x + lin(blk.attn.wo, o.flatten(2))
+        m = norm(blk.norm2.scale, x)
+        x = x + lin(blk.ffn.down, torch.nn.functional.silu(lin(blk.ffn.gate, m)) * lin(blk.ffn.up, m))
+    return ks, norm(params.final_norm.scale, x)[:, -1:] @ p64(params.lm_head.w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decoder_prefill_on_card_launches_the_kernel_per_layer(cuda, dtype):
     from repro_torch.models import build_model
 
     cfg = dataclasses.replace(get_config("qwen2.5-32b").reduced(), attn_impl="chunked", n_layers=3, param_dtype=dtype)
-    m, m_cpu = build_model(cfg), build_model(cfg, device="cpu")
+    m = build_model(cfg)
     # the witness: the same weights on the card through attn_impl="dense"
     # (cuBLAS products and a torch softmax, no kernel)
     m_dense = build_model(dataclasses.replace(cfg, attn_impl="dense"))
@@ -412,11 +457,25 @@ def test_decoder_prefill_on_card_launches_the_kernel_per_layer(cuda, dtype):
     wit2, _ = m_dense.decode_step(params, wit_caches, nxt.to(cuda), 100)
     assert flash_attention_cuda.launches == before + cfg.n_layers
     params_cpu = params.to("cpu")
-    ref, ref_caches = m_cpu.prefill(params_cpu, {"tokens": torch.from_numpy(toks)}, cache_len=120)
-    ref2, _ = m_cpu.decode_step(params_cpu, ref_caches, nxt, 100)
+    if dtype == torch.float32:
+        # The reference: a float64 prefill of the same weights, cast back.
+        # The port's float32 CPU route moved now and then on the card's host
+        # (ROADMAP C4: one ``apply_rope`` call 1.1e-4 off float64 in a
+        # failing run, right when made again), while both card routes
+        # stayed within 5e-6 of float64.
+        # The decode step wrote position 100 into the caches in place: its
+        # k is the float64 prefill's of the 101 tokens.
+        ref = _float64_prefill(params_cpu, cfg, toks)[1]
+        ks, ref2 = _float64_prefill(params_cpu, cfg, np.concatenate([toks, nxt.numpy()], axis=1))
+        ref_k = torch.zeros(caches[0][0]["k"].shape, dtype=torch.float64)
+        ref_k[:, :, : toks.shape[1] + 1] = torch.stack(ks)
+    else:
+        m_cpu = build_model(cfg, device="cpu")
+        ref, ref_caches = m_cpu.prefill(params_cpu, {"tokens": torch.from_numpy(toks)}, cache_len=120)
+        ref_k = ref_caches[0][0]["k"]
+        ref2, _ = m_cpu.decode_step(params_cpu, ref_caches, nxt, 100)
     tol = _TOL[dtype]
-    for got, w, exp in ((logits, wit, ref), (caches[0][0]["k"], wit_caches[0][0]["k"], ref_caches[0][0]["k"]),
-                        (logits2, wit2, ref2)):
+    for got, w, exp in ((logits, wit, ref), (caches[0][0]["k"], wit_caches[0][0]["k"], ref_k), (logits2, wit2, ref2)):
         got, w, exp = got.cpu().float(), w.cpu().float(), exp.float()
         if dtype == torch.float32:
             torch.testing.assert_close(got, exp, rtol=tol, atol=tol)
@@ -619,46 +678,113 @@ def test_chunked_mha_on_card_raises_under_grad(cuda):
     assert y.shape == (1, 8, 64) and bool(torch.isfinite(y).all())
 
 
+# Every arch of the registry, reduced, in float32; LLaVA-NeXT also under
+# remat="dots"; one case with int8 gradient compression (error feedback).
+TRAIN_CASES = [("llava-next-mistral-7b", "full", False), ("llava-next-mistral-7b", "dots", False)] + [
+    (arch, "full", False) for arch in ("qwen2.5-32b", "gemma3-12b", "recurrentgemma-2b", "qwen2-moe-a2.7b",
+                                        "llama4-scout-17b-a16e", "mamba2-1.3b", "minicpm3-4b", "whisper-tiny",
+                                        "qwen1.5-110b")
+] + [("qwen2.5-32b", "full", True)]
+
+
+@contextlib.contextmanager
+def _recorded_int8():
+    """(int8 values, step) of every gradient the optimizer quantizes
+    inside the block, in call order (one call a parameter and update)."""
+    from repro_torch.optim import adamw
+
+    calls, inner = [], adamw._quantize_int8
+
+    def quantize(g):
+        out = inner(g)
+        calls.append((out[0], float(out[1])))
+        return out
+
+    adamw._quantize_int8 = quantize
+    try:
+        yield calls
+    finally:
+        adamw._quantize_int8 = inner
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("remat", ["full", "dots"])
-def test_train_loop_on_card_matches_cpu(cuda, remat):
-    """Two train steps of reduced LLaVA-NeXT (float32, patch embeddings,
-    2 microbatches) on the card give the CPU's losses and state within
+@pytest.mark.parametrize("arch,remat,compress", TRAIN_CASES)
+def test_train_loop_on_card_matches_cpu(cuda, arch, remat, compress):
+    """Two train steps of a reduced model of ``arch`` (float32, 2
+    microbatches) on the card give the CPU's losses and train state within
     2e-4; each checkpoint-hook save launches the cut and fingerprint
-    kernels once."""
+    kernels once. LLaVA-NeXT's batches carry patch embeddings and
+    Whisper's frame embeddings; the MoE archs route every token to the
+    CPU's experts. With int8 gradient compression the card's int8 values
+    equal the CPU's but for elements one step apart (a float32 gradient at
+    a rounding edge), at most 1 in 1,000: every leaf is held within 2e-4
+    at the other elements, and at those each ``err`` leaf within its
+    tensor's two steps (and 2e-4); the moments and weights there follow
+    the rounded gradient and are not compared."""
     from repro_torch.checkpoint import DedupCheckpointer
     from repro_torch.checkpoint.dedup_ckpt import _leaf_paths
     from repro_torch.data import SyntheticLMData
     from repro_torch.models import build_model
-    from repro_torch.models.convert import train_state_from_tree, train_state_to_tree
+    from repro_torch.models.convert import _tree_of_named, train_state_from_tree, train_state_to_tree
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainConfig, train_loop
     from repro_torch.train.loop import init_train_state
 
-    cfg = dataclasses.replace(get_config("llava-next-mistral-7b").reduced(), param_dtype=torch.float32, remat=remat)
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype=torch.float32, remat=remat)
     rng = np.random.default_rng(0)
-    patches = rng.standard_normal((4, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    extra = {}
+    if cfg.frontend == "vision_stub":
+        extra["patch_embeds"] = rng.standard_normal((4, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.enc_dec:
+        extra["frame_embeds"] = rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32)
 
     class Data:
         text = SyntheticLMData(vocab=cfg.vocab, seq_len=24, global_batch=4, seed=2)
 
         def batch(self, step):
-            return {**self.text.batch(step), "patch_embeds": patches + step}
+            return {**self.text.batch(step), **{k: v + step for k, v in extra.items()}}
 
     tc = TrainConfig(steps=2, accum=2, log_every=1, checkpoint_every=1,
-                     opt=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+                     opt=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4, compress_grads=compress))
     cpu_model, card_model = build_model(cfg, device="cpu"), build_model(cfg)
     cpu_init = init_train_state(cpu_model, 0, tc.opt)
     card_init = train_state_from_tree(train_state_to_tree(cpu_init, cfg), cfg)  # copies to the card
-    cpu_state, cpu_hist = train_loop(cpu_model, Data(), tc, state=cpu_init)
+    with chip_smoke.recorded_routing() as cpu_ids, _recorded_int8() as cpu_q:
+        cpu_state, cpu_hist = train_loop(cpu_model, Data(), tc, state=cpu_init)
     ckpt = DedupCheckpointer(DedupCluster.create(4, replicas=2, chunking=ChunkingSpec("fixed", 64 * 1024)))
     cut0, fp0 = cdc_cut_positions_cuda.launches, fingerprint_chunks_cuda.launches
-    card_state, card_hist = train_loop(card_model, Data(), tc, checkpointer=ckpt, state=card_init)
+    with chip_smoke.recorded_routing() as card_ids, _recorded_int8() as card_q:
+        card_state, card_hist = train_loop(card_model, Data(), tc, checkpointer=ckpt, state=card_init)
     assert (cdc_cut_positions_cuda.launches - cut0, fingerprint_chunks_cuda.launches - fp0) == (2, 2)
     assert [h["step"] for h in card_hist] == [0, 1]
+    assert len(card_ids) == len(cpu_ids) and bool(cpu_ids) == bool(cfg.n_experts)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card_ids, cpu_ids))
     np.testing.assert_allclose([h["loss"] for h in card_hist], [h["loss"] for h in cpu_hist], rtol=2e-4, atol=2e-4)
+    names = list(dict(cpu_state["params"].named_parameters()))
+    assert len(card_q) == len(cpu_q) == (2 * len(names) if compress else 0)
+    edge = {n: torch.zeros(p.shape, dtype=torch.bool) for n, p in cpu_state["params"].named_parameters()}
+    steps = dict.fromkeys(names, 0.0)
+    for i, ((a, step), (b, _)) in enumerate(zip(card_q, cpu_q)):
+        d = (a.cpu().to(torch.int16) - b.to(torch.int16)).abs()
+        assert int(d.max()) <= 1, names[i % len(names)]
+        edge[names[i % len(names)]] |= d.bool()
+        steps[names[i % len(names)]] += step
+    n_edge = sum(int(m.sum()) for m in edge.values())
+    assert n_edge <= sum(m.numel() for m in edge.values()) // 1000, n_edge
+    moments = [k for k in ("master", "mu", "nu", "err") if k in cpu_state["opt"]]
+    mask_of = dict(_leaf_paths({"params": _tree_of_named(edge, cfg),
+                                "opt": {k: _tree_of_named(edge, cfg) for k in moments}}))
+    step_of = dict(_leaf_paths(_tree_of_named({n: torch.full(p.shape, steps[n]) for n, p in edge.items()}, cfg)))
     card_tree = train_state_to_tree(card_state, cfg)
     cpu_tree = train_state_to_tree(cpu_state, cfg)
     for (key, a), (_, b) in zip(_leaf_paths(card_tree), _leaf_paths(cpu_tree)):
         assert a.device.type == "cuda", key
-        np.testing.assert_allclose(a.cpu().float().numpy(), b.float().numpy(), rtol=2e-4, atol=2e-4, err_msg=key)
+        a, b = a.cpu().float().numpy(), b.float().numpy()
+        at_edge = mask_of[key].numpy() if key in mask_of else np.zeros(a.shape, dtype=bool)
+        np.testing.assert_allclose(a[~at_edge], b[~at_edge], rtol=2e-4, atol=2e-4, err_msg=key)
+        if key.startswith("['opt']/['err']/") and at_edge.any():
+            bound = step_of[key.removeprefix("['opt']/['err']/")].numpy()[at_edge] + 2e-4
+            assert (np.abs(a[at_edge] - b[at_edge]) <= bound).all(), key

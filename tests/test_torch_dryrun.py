@@ -32,6 +32,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # the workers share the host's cores
+    torch.set_num_threads(1)
 
 import repro_torch.core as tcore
 from repro_torch.checkpoint import CheckpointConfig, DedupCheckpointer

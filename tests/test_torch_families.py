@@ -11,6 +11,7 @@ cache's ``pos_idx``) and bit-carried tensors exactly.
 """
 
 import dataclasses
+import os
 import re
 import sys
 from pathlib import Path
@@ -19,6 +20,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # the workers share the host's cores
+    torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 

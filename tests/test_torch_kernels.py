@@ -10,11 +10,14 @@ tests check host-side helpers of ``chip_smoke.py`` and
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # the workers share the host's cores
+    torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
@@ -211,6 +214,25 @@ def test_cut_positions_twin_matches_scalar_and_pallas(n, target, mn, mx):
     np.testing.assert_array_equal(pos[:n_cuts].numpy(), _pallas_cuts(data, spec))
     assert bool((pos[n_cuts:] == n).all())
     assert n_chunks == len(list(chunk_cdc_scalar(data, spec)))
+
+
+@pytest.mark.parametrize("piece", [64, 1000, 4096])
+def test_plain_cuts_in_pieces_match_the_whole_stream(monkeypatch, piece):
+    """The plain twin hashes a stream longer than ``PLAIN_PIECE`` piece by
+    piece, each piece read with the window's bytes before it: the same
+    candidates, cut positions and counts as hashing the whole stream."""
+    from repro_torch.kernels import cdc, ref
+
+    data = np.random.default_rng(piece).integers(0, 256, size=20_011, dtype=np.uint8)
+    t = torch.from_numpy(data)
+    # a dense mask: the window's last bytes decide its low bits
+    kw = dict(mask=cdc_mask(16), min_size=8, max_size=64)
+    whole_cand = ref.cdc_boundaries(cdc.gear_values(t), kw["mask"])
+    [whole] = cdc_cut_positions_plain([t], **kw)
+    monkeypatch.setattr(cdc, "PLAIN_PIECE", piece)
+    assert torch.equal(cdc.cdc_boundaries_plain(t, kw["mask"]), whole_cand)
+    [(pos, n_cuts, n_chunks)] = cdc_cut_positions_plain([t], **kw)
+    assert torch.equal(pos, whole[0]) and (n_cuts, n_chunks) == whole[1:] and n_cuts > 500
 
 
 @pytest.mark.parametrize("buf", [256 * 1024, 2 * 1024 * 1024])

@@ -16,6 +16,7 @@ overflows, in both packages alike.
 """
 
 import dataclasses
+import os
 import re
 import sys
 from pathlib import Path
@@ -24,6 +25,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # the workers share the host's cores
+    torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 

@@ -15,6 +15,7 @@ functions are built once per module.
 
 import dataclasses
 import functools
+import os
 import re
 import sys
 from pathlib import Path
@@ -23,6 +24,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # the workers share the host's cores
+    torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 

@@ -10,6 +10,7 @@ ones (``tests/test_flash_attn_kernel.py:46,58``).
 
 import dataclasses
 import functools
+import os
 import re
 import sys
 from pathlib import Path
@@ -18,6 +19,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # the workers share the host's cores
+    torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 

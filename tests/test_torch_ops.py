@@ -5,10 +5,14 @@ its jnp oracles, the port on its plain torch twins). Every output is
 integers or bytes, so the tolerance is 0 everywhere.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # the workers share the host's cores
+    torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 

@@ -23,6 +23,8 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):  # the workers share the host's cores
+    torch.set_num_threads(1)
 
 from repro_torch.distributed.sharding import (
     PartitionSpec as P,

@@ -4,13 +4,22 @@
 on a CUDA card.
 
     python3 tools/c4_diagnose.py [--alone 50] [--jobs 4] [--file 10] [--measure 20]
+        [--upto-case] [--probe 30] [--platform] [--no-racecheck]
 
 * ``--alone N``: the case alone, N pytest processes, ``--jobs`` at a time;
 * ``--file M``: the whole card-test file in its order, M times, one after
   the other; every failing case is listed;
-* ``--probe-file P``: the file P more times under ``tools/c4_probe.py``,
-  which keeps each flash call's |kernel - plain| during the case and makes
-  the case's comparisons again right after it, kernel route and witness;
+* ``--upto-case``: with ``--file``, run the file's cases in its order up
+  to and including the case, passed as node ids (no plugin; the later
+  cases cannot reach it). A failing float32 comparison of the case names
+  the route that moved: each route against a float64 prefill of the same
+  weights, and whether it gives its result again;
+* ``--probe P``: the file's cases up to the case, P times, under
+  ``tools/c4_probe.py``, which records the CPU route's operations by
+  reference and, when the case fails, gives each operation's own error
+  against float64 in call order;
+* ``--platform``: the host's CPU, torch's build and threading, and the
+  environment variables that steer BLAS and oneDNN;
 * ``--measure K``: the case's computation K times in this process: for
   each of the three tensors the test compares (the prefill's logits, layer
   0's k cache, the decode step's logits), the largest |error| against the
@@ -20,8 +29,7 @@ on a CUDA card.
   test's shapes (head dim 32: ``flash_fwd_simt<float, 32, 32>``) and at
   head dim 128 (``flash_fwd_simt<float, 128, 128>``), when the tool runs.
 
-Prints one JSON line per part; failing pytest output and the probe's
-lines go to ``--out`` (default ``results/c4/``). Exits 0 whatever it
+Prints one JSON line per part; failing pytest output goes to ``--out`` (default ``results/c4/``). Exits 0 whatever it
 finds: it reports.
 """
 
@@ -59,32 +67,54 @@ def alone(n: int, jobs: int) -> dict:
     return {"part": "alone", "runs": n, "failed": len(failed), "failed_runs": failed}
 
 
-def whole_file(m: int) -> dict:
-    fails = []
+def upto_case() -> list[str]:
+    """The file's card cases in its order, up to and including the case."""
+    r = _pytest(["--collect-only", "-m", "cuda", "tests/test_torch_cuda.py"])
+    ids = [line for line in r.stdout.splitlines() if line.startswith("tests/test_torch_cuda.py::")]
+    return ids[: ids.index(CASE) + 1]
+
+
+def whole_file(m: int, upto: bool) -> dict:
+    fails, summaries, args = [], [], upto_case() if upto else ["-m", "cuda", "tests/test_torch_cuda.py"]
     for i in range(m):
-        r = _pytest(["-m", "cuda", "tests/test_torch_cuda.py"])
+        r = _pytest(args)
         names = re.findall(r"^FAILED (\S+)", r.stdout, flags=re.M)
         fails.append(names)
+        summaries.append((r.stdout.strip().splitlines() or [""])[-1])
         if r.returncode != 0:
             (OUT / f"file_{i}.txt").write_text(r.stdout[-20000:] + r.stderr[-5000:])
-    return {"part": "file", "runs": m, "failing_cases_by_run": fails,
+    return {"part": "file", "runs": m, "cases": len(args) if upto else "all", "summaries": summaries,
+            "failing_cases_by_run": fails,
             "case_failed": sum(CASE.split("::")[1] in " ".join(f) for f in fails)}
 
 
-def probe_file(p: int) -> dict:
+def platform_info() -> dict:
+    import platform
+
+    import torch
+
+    cpu = Path("/proc/cpuinfo").read_text() if Path("/proc/cpuinfo").exists() else ""
+    model = re.findall(r"^model name\s*:\s*(.*)$", cpu, flags=re.M)
+    cpu_flags = (re.findall(r"^flags\s*:\s*(.*)$", cpu, flags=re.M) or [""])[0].split()
+    return {"part": "platform", "machine": platform.machine(), "cpu": model[0] if model else None,
+            "cpu_flags": [f for f in cpu_flags if f.startswith(("avx512", "amx", "fma", "avx2"))],
+            "torch": torch.__version__, "cuda": torch.version.cuda, "config": torch.__config__.show(),
+            "parallel": torch.__config__.parallel_info(),
+            "env": {k: v for k, v in os.environ.items()
+                    if k.startswith(("MKL", "OMP", "KMP", "ONEDNN", "DNNL", "OPENBLAS", "GOMP", "NVIDIA_TF32"))}}
+
+
+def probe(p: int) -> dict:
     env = {**ENV, "PYTHONPATH": f"{ROOT / 'src'}{os.pathsep}{ROOT / 'tools'}", "C4_PROBE_OUT": str(OUT)}
-    probe = OUT / "probe.jsonl"
-    probe.unlink(missing_ok=True)
+    out = OUT / "probe.jsonl"
+    out.unlink(missing_ok=True)
+    args = upto_case()
     for _ in range(p):
-        subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-p", "c4_probe",
-                        "-m", "cuda", "tests/test_torch_cuda.py"], cwd=ROOT, env=env, capture_output=True, text=True)
-    runs = [json.loads(line) for line in probe.read_text().splitlines()] if probe.exists() else []
-    passing = [r for r in runs if not r["failed"]]
-    return {"part": "probe_file", "runs": len(runs), "failed": len(runs) - len(passing),
-            "failing_runs": [r for r in runs if r["failed"]],
-            "flash_vs_plain_max_abs_over_passing_runs": max((max(r["flash_vs_plain_max_abs"], default=0.0)
-                                                             for r in passing), default=None),
-            "first_passing_run": passing[0] if passing else None}
+        subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-p", "c4_probe", *args],
+                       cwd=ROOT, env=env, capture_output=True, text=True)
+    runs = [json.loads(line) for line in out.read_text().splitlines()] if out.exists() else []
+    return {"part": "probe", "runs": len(runs), "failed": sum(r["failed"] for r in runs),
+            "failing_runs": [r for r in runs if r["failed"]]}
 
 
 def measure(k: int) -> dict:
@@ -159,7 +189,9 @@ def main() -> int:
     ap.add_argument("--jobs", type=int, default=4)
     ap.add_argument("--file", type=int, default=10)
     ap.add_argument("--measure", type=int, default=20)
-    ap.add_argument("--probe-file", type=int, default=0)
+    ap.add_argument("--upto-case", action="store_true")
+    ap.add_argument("--probe", type=int, default=0)
+    ap.add_argument("--platform", action="store_true")
     ap.add_argument("--no-racecheck", action="store_true")
     ap.add_argument("--out", type=Path, default=OUT)
     args = ap.parse_args()
@@ -168,6 +200,8 @@ def main() -> int:
     # build the kernels once, before processes run side by side
     subprocess.run([sys.executable, "-c", "import sys; sys.path.insert(0, 'src');"
                     "from repro_torch.kernels import _build; _build.build_all()"], cwd=ROOT, env=ENV, check=True)
+    if args.platform:
+        print(json.dumps(platform_info()), flush=True)
     if args.measure:
         print(json.dumps(measure(args.measure)), flush=True)
     if not args.no_racecheck:
@@ -176,9 +210,9 @@ def main() -> int:
     if args.alone:
         print(json.dumps(alone(args.alone, args.jobs)), flush=True)
     if args.file:
-        print(json.dumps(whole_file(args.file)), flush=True)
-    if args.probe_file:
-        print(json.dumps(probe_file(args.probe_file)), flush=True)
+        print(json.dumps(whole_file(args.file, args.upto_case)), flush=True)
+    if args.probe:
+        print(json.dumps(probe(args.probe)), flush=True)
     return 0
 
 

@@ -1,22 +1,22 @@
-"""A pytest plugin for ``tools/c4_diagnose.py --probe-file``: while
+"""A pytest plugin for ``tools/c4_diagnose.py --probe``: while
 ``test_decoder_prefill_on_card_launches_the_kernel_per_layer[dtype0]`` runs
-in its file's order, every flash call is also computed by the plain version
-on the same inputs (the largest |kernel - plain| per call is kept), and
-every attention output and block output of the test's three prefills (the
-kernel route and the witness on the card, then the CPU) is kept, so that
-each layer of each card route is held against the CPU's; every float32
-product on the CPU is held against the same product in float64, and the
-CPU's thread count and matmul precision settings are kept; right after the
-test, its comparisons are made again in the same process. One JSON line per
-run of the test goes to ``probe.jsonl`` in ``$C4_PROBE_OUT`` (default
-``results/c4/``).
+in its file's order, every operation of the CPU route's prefill (the route
+that moves, ROADMAP C4) is recorded by reference: ``rms_norm``, ``dense``,
+``apply_rope`` and ``chunked_attention`` with their inputs and outputs. The
+hooks compute nothing. When the case fails, each recorded operation is made
+again in float64 from its own recorded inputs, and its own error (max
+|float32 - float64| over max |float64|) is reported in call order, so the
+first operation far off the others is the one whose result moved. One JSON
+line per run of the case goes to ``probe.jsonl`` in ``$C4_PROBE_OUT``
+(default ``results/c4/``); the session stops after the case.
 
-    PYTHONPATH=src:tools python -m pytest -p c4_probe -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src:tools python -m pytest -p c4_probe tests/test_torch_cuda.py::<cases up to the C4 case>
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 from pathlib import Path
 
@@ -26,8 +26,39 @@ OUT = Path(os.environ.get("C4_PROBE_OUT", Path(__file__).resolve().parents[1] / 
 TARGET = "test_decoder_prefill_on_card_launches_the_kernel_per_layer[dtype0]"
 
 
-def _max_abs(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+def _d(t):
+    return t.detach().double()
+
+
+def _float64(name: str, args: tuple, kw: dict):
+    """The recorded operation in float64 from its recorded inputs."""
+    import torch
+
+    if name == "rms_norm":
+        p, x, eps = args[0], _d(args[1]), args[2] if len(args) > 2 else kw.get("eps", 1e-6)
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * _d(p.scale)
+    if name == "dense":
+        p, x = args
+        y = _d(x) @ _d(p.w)
+        return y if p.b is None else y + _d(p.b)
+    if name == "apply_rope":
+        x, positions, theta = _d(args[0]), args[1], args[2]
+        hd = x.shape[-1]
+        freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float64) / hd))
+        ang = positions.double()[..., None] * freqs
+        cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+        x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    # chunked_attention(qg (B, Sq, K, R, hd), k, v, causal, window, mask_offset, scale, ...)
+    qg, k, v = _d(args[0]), _d(args[1]), _d(args[2])
+    s = torch.einsum("bqkrh,bskh->bkrqs", qg, k) * kw["scale"]
+    sq, skv = qg.shape[1], k.shape[1]
+    qpos = torch.arange(sq)[:, None] + kw["mask_offset"]
+    ok = torch.ones(sq, skv, dtype=torch.bool)
+    if kw["causal"]:
+        ok &= torch.arange(skv)[None, :] <= qpos
+    w = torch.softmax(s.masked_fill(~ok, -math.inf), -1)
+    return torch.movedim(torch.einsum("bkrqs,bskh->bkrqh", w, v), 3, 1)
 
 
 @pytest.hookimpl(hookwrapper=True)
@@ -35,69 +66,40 @@ def pytest_runtest_call(item):
     if item.name != TARGET:
         yield
         return
-    import torch
-
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attn import flash_attention_plain
     from repro_torch.models import layers as L
-    from repro_torch.models import transformer as T
 
-    flags = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-             "float32_matmul_precision": torch.get_float32_matmul_precision(),
-             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
-             "threads": torch.get_num_threads(), "cpus": len(os.sched_getaffinity(0))}
-    for name in ("fp32_precision", "mkldnn.fp32_precision", "mkldnn.matmul.fp32_precision",
-                 "cuda.matmul.fp32_precision"):
-        obj = torch.backends
-        for part in name.split("."):
-            obj = getattr(obj, part, None)
-        flags[name] = obj
-    calls, kept = [], {"mha": [], "block": []}
-    cpu_dense = []  # largest |fp32 - fp64| / max|fp64| of each CPU product
-    orig_flash, orig_mha, orig_block, orig_dense = ops.flash_attention, L.mha, T.block_fwd, L.dense
+    calls = []
+    names = ("rms_norm", "dense", "apply_rope", "chunked_attention")
+    orig = {n: getattr(L, n) for n in names}
 
-    def dense(p, x):
-        y = orig_dense(p, x)
-        if x.device.type == "cpu" and x.dtype == torch.float32:
-            want = orig_dense(L.Dense(p.w.double(), None if p.b is None else p.b.double()), x.double())
-            cpu_dense.append(float((y.double() - want).abs().max() / want.abs().max()))
-        return y
+    def hook(name):
+        def fn(*args, **kw):
+            out = orig[name](*args, **kw)
+            first = args[1] if name in ("rms_norm", "dense") else args[0]
+            if first.device.type == "cpu":
+                calls.append((name, args, kw, out))
+            return out
+        return fn
 
-    def flash(q, k, v, **kw):
-        out = orig_flash(q, k, v, **kw)
-        calls.append(_max_abs(out, flash_attention_plain(q, k, v, **kw)))
-        return out
-
-    def mha(*args, **kw):
-        out = orig_mha(*args, **kw)
-        kept["mha"].append((out[0] if isinstance(out, tuple) else out).detach().float().cpu())
-        return out
-
-    def block(*args, **kw):
-        out = orig_block(*args, **kw)
-        kept["block"].append(out[0].detach().float().cpu())
-        return out
-
-    ops.flash_attention, L.mha, T.block_fwd, L.dense = flash, mha, block, dense
+    for n in names:
+        setattr(L, n, hook(n))
     try:
         outcome = yield
     finally:
-        ops.flash_attention, L.mha, T.block_fwd, L.dense = orig_flash, orig_mha, orig_block, orig_dense
-    failed = outcome.excinfo is not None
-    layers = {}
-    for name, outs in kept.items():
-        if len(outs) == 9:  # kernel route, witness, CPU; 3 layers each
-            layers[name] = {"kernel_vs_cpu": [_max_abs(outs[i], outs[6 + i]) for i in range(3)],
-                            "witness_vs_cpu": [_max_abs(outs[3 + i], outs[6 + i]) for i in range(3)],
-                            "kernel_vs_witness": [_max_abs(outs[i], outs[3 + i]) for i in range(3)]}
-        else:
-            layers[name] = f"{len(outs)} calls"
-    import c4_diagnose
-
-    again = c4_diagnose.measure(1)["max_abs_err_and_most_elements_beyond"]
+        for n, fn in orig.items():
+            setattr(L, n, fn)
+    rec = {"failed": outcome.excinfo is not None, "cpu_calls": len(calls)}
+    if rec["failed"]:
+        rec["error"] = str(outcome.excinfo[1])[-900:]
+        errs = []
+        for i, (name, args, kw, out) in enumerate(calls):
+            try:
+                want = _float64(name, args, kw)
+                errs.append([i, name, float((_d(out) - want).abs().max() / want.abs().max())])
+            except Exception as e:  # the probe reports; it must not hide the case's own result
+                errs.append([i, name, f"{type(e).__name__}: {e}"])
+        rec["local_errors_in_call_order"] = errs
     OUT.parent.mkdir(parents=True, exist_ok=True)
     with OUT.open("a") as f:
-        f.write(json.dumps({"failed": failed, "error": str(outcome.excinfo[1])[:400] if failed else None,
-                            "flags": flags, "flash_vs_plain_max_abs": calls, "layers": layers,
-                            "cpu_dense_rel_err_max": max(cpu_dense, default=None), "cpu_dense_calls": len(cpu_dense),
-                            "measured_again": again}) + "\n")
+        f.write(json.dumps(rec) + "\n")
+    item.session.shouldstop = "c4_probe: stopped after the case"

@@ -9,7 +9,8 @@ the card (``attn_impl="chunked"``, random bf16 weights), then on a (1, 1)
 mesh runs ``chip_smoke.mesh_prefill_phase`` (8,192 tokens, bitwise against
 the plain prefill, one flash launch a layer, both profiled) and
 ``chip_smoke.mesh_save_phase`` (phase 3's layer re-saved as DTensors), and
-the two dry runs of ``chip_smoke.dryrun_phase``. Prints their JSON lines;
+the two dry runs of phase 11a (``chip_smoke.start_dry_runs``,
+``chip_smoke.dry_run_records``). Prints their JSON lines;
 exits 1 on any failed check. About 2 minutes with its build on an H100.
 """
 
@@ -57,7 +58,7 @@ def main() -> int:
     print("rows " + json.dumps(rows))
     if not args.no_dryrun:
         t = time.perf_counter()
-        for rec in C.dryrun_phase():
+        for rec in C.dry_run_records(C.start_dry_runs()):
             print("dryrun " + json.dumps(rec))
         print(f"dry runs: {time.perf_counter() - t:.3f} s")
     return 0
