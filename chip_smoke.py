@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU: the dedup checkpoint
 save, training with dedup checkpoints at the full width of
-LLaVA-NeXT-Mistral-7B, Qwen1.5-MoE-A2.7B and Mamba2-1.3B, Qwen2.5-32B
+LLaVA-NeXT-Mistral-7B, Qwen1.5-MoE-A2.7B and Mamba2-1.3B, training through
+the flash kernels in both directions (LLaVA-NeXT), Qwen2.5-32B
 prefill and prefix-cache serving at full width, the sliding-window
 families (Gemma3-12B, RecurrentGemma-2B), Qwen1.5-MoE-A2.7B, Mamba2-1.3B
 and Whisper-tiny, and MiniCPM3-4B's
@@ -62,11 +63,36 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    state's wave (every stream's positions and counts, every fingerprint
    row) and timed there. Each phase must leave nothing allocated on the
    card (``torch.cuda.memory_allocated()`` back to its level);
+4e. the train path through the flash kernels (``chunked_train_phase``):
+   4b's model, shape and batch (2 of 32 layers at full width, bf16,
+   ``remat="full"``, AdamW, from ``--seed``) with ``attn_impl="chunked"``,
+   no checkpoint hook. (b) Step 0's loss and gradients through "chunked"
+   and through "dense" from the same state and batch: the losses within
+   1e-2 relative, each leaf's relative gradient error reported; (a) 3
+   steps of ``train_loop``, the flash counts set to 0 before each and read
+   after it: 8 forward launches (2 layers x 2 microbatches x the forward
+   and its recompute) and 4 backward launches a step, exact; then a dense
+   step; (d) one chunked and one dense step profiled by operation (the
+   kernels under "attention (flash kernels)" by the autograd Function's
+   profiler events), step seconds, tokens/s and peak memory beside the dense
+   step's; (c) the model at depth 1 in float32 on one microbatch of 1 x
+   4,096 (the fp32 kernels): the loss and every gradient leaf, chunked
+   against dense, within rtol = atol = 2e-4; (e) nothing left allocated;
 5. hold the flash-attention kernel against its plain version on the card:
    the (causal, window) x (H, K) grid, (40, 8) heads at hd 128, float32 and
    bfloat16, Sq != Skv and ragged lengths, counting the elements beyond
    tolerance (``FLASH_RTOL``: relative to each element and to its row's RMS),
-   a count phases 6 and 8 add to;
+   a count phases 6 and 8 add to. Then the backward kernel against its
+   plain twin (``flash_bwd_phase``, ``FlashBwdCheck``): the forward's lse
+   against the plain one (``FLASH_LSE_TOL``), dq, dk and dv within
+   ``FLASH_BWD_RTOL`` (the forward's form of limit) plus ``FLASH_BWD_ATOL``
+   x the tensor's RMS on the (causal, window) x (H, K)
+   grid at hd 128 and on ragged, rectangular and other head-dim shapes, in
+   float32 and bfloat16; then at each model's train shape
+   (``TRAIN_ATTENTION_SHAPES``: Sq = Skv = 4,096, batch 1) checked in both
+   dtypes and timed in bf16 beside the twin, its bound and
+   ``scaled_dot_product_attention``'s backward (timed only), its
+   registers and spills from ``cuobjdump -res-usage``;
 6. the prefill path at full width: Qwen2.5-32B from the port's registry
    with ``attn_impl="chunked"``, all 64 layers, bf16, random weights from
    ``--seed`` on the card (65.5 GB); prefill 1 x 8,192 tokens into a
@@ -153,8 +179,8 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    no card, started before the build and read after phase 10; each record
    must read ``status: ok``.
 
-It prints ``main_path``, ``train``, ``train_family``, ``prefill``,
-``serving``, ``family``, ``mesh_prefill``, ``mesh_save`` and ``dryrun``
+It prints ``main_path``, ``train``, ``train_family``, ``train_chunked``,
+``prefill``, ``serving``, ``family``, ``mesh_prefill``, ``mesh_save`` and ``dryrun``
 JSON lines, a ``phases`` line (each phase's seconds), a ``kernels`` JSON
 line, the card's name and power limit from nvidia-smi, and last ``{"ok":
 true, "device": ...}``. It exits non-zero without printing a
@@ -210,6 +236,25 @@ BF16_FLOP_PER_S = 989e12
 # cores). tools/flash_planted_faults.py plants dropped tiles in the late
 # rows and shows that this check fails them.
 FLASH_RTOL = {"float32": 2e-4, "bfloat16": 1.6e-2}
+# The backward kernel's tolerance on dq, dk and dv: the forward's form
+# (``flash_err_ratio``), rtol x (|plain| + the RMS of plain's row), plus
+# ``FLASH_BWD_ATOL`` x the RMS of the whole plain gradient. A row's exact
+# gradient can be 0 (a query that sees one key has dS = P (dP - delta) =
+# 0, so dq = 0), and there only fp32 rounding is left: 1.5e-5 of the
+# tensor's RMS between the float32 and float64 twins at 512 positions,
+# 2.5e-5 to 5e-5 between the kernel and the twin at the train shapes on
+# an H100. float32 rtol 2e-4, as the forward. bfloat16: the kernel rounds
+# P and dS to bf16 for its products, and its outputs and the plain twin's
+# are rounded to bf16; 2e-2 is about twice the sound kernel's largest
+# reading (0.0101 on an H100), and the planted faults of
+# tools/flash_planted_faults.py, which drop one query tile from a dK / dV
+# sum or one kv tile from a dQ sum, must fail it.
+FLASH_BWD_RTOL = {"float32": 2e-4, "bfloat16": 2e-2}
+FLASH_BWD_ATOL = 2e-4
+# The forward's log-sum-exp against the plain one: |kernel - plain| <= tol
+# * (1 + |plain|), both dtypes (the scores are fp32 sums either way), and
+# -inf exactly where the plain one is -inf.
+FLASH_LSE_TOL = 2e-4
 # A window-hash stream longer than 2^31 bytes (2.2 GB in, 8.9 GB out).
 LONG_STREAM = (1 << 31) + (1 << 26) + 7
 # The train phase: LLaVA-NeXT-Mistral-7B (src/repro/configs/
@@ -220,6 +265,12 @@ TRAIN_LAYERS = 2
 TRAIN_SEQ = 4096
 TRAIN_BATCH = 2
 TRAIN_ACCUM = 2
+# Phase 4e: phase 4b's model and shape through attn_impl="chunked", its
+# steps, and the flash launches each must make under remat="full": the
+# forward and its recompute for each layer and microbatch, the backward once.
+CHUNKED_STEPS = 3
+CHUNKED_FORWARD_LAUNCHES = 2 * TRAIN_LAYERS * TRAIN_ACCUM
+CHUNKED_BACKWARD_LAUNCHES = TRAIN_LAYERS * TRAIN_ACCUM
 PREFILL_TOKENS = 8192
 PREFILL_CACHE = 8200
 DECODE_TOKENS = 8
@@ -1072,11 +1123,22 @@ def step_categories(cfg) -> list:
     - the embedding: its gather (``aten::index`` / ``aten::embedding``) and
       the backward's ``_index_put_impl_`` / ``embedding_dense_backward``,
       on the (V, D) table (the zero fill of the table's gradient before
-      them goes to the unembedding and loss).
+      them goes to the unembedding and loss);
+    - the flash kernels (where the arch has attention): the autograd
+      Function's forward and backward (``FlashAttention``,
+      ``FlashAttentionBackward``: the profiler gives a kernel launched
+      from Python to the innermost operation around it, not to a
+      ``record_function`` range) and the ``flash_attention_cuda`` /
+      ``flash_attention_bwd_cuda`` ranges, with the lse, delta and
+      gradient buffers and the copies of a strided dO (the kernels are no
+      aten operations, so no shape tells them).
     The others by an operation's own input shapes:
     - the unembedding and loss: any operand with a vocabulary-sized dim;
-    - dense attention (where the arch has it): an operand with two S dims
-      (the (S, S) scores), or a ``bmm`` whose operands hold S twice;
+    - dense attention (where the arch has it): an operand whose last two
+      dims are (S, S) and whose leading dims hold more than one (batch,
+      head) row (the scores; LLaVA-NeXT's (1, S, d_model) activations and
+      (d_model, d_model) weights have S = d_model = 4,096 twice too, and
+      are no scores), or a ``bmm`` whose operands hold S twice;
     - MoE: the router by its (T, E) logits or (D, E) weight; the dispatch
       and combine by an operand holding the groups' E x C slots as one dim,
       the (G, g x k, E) one-hot choices or the (G, g, E, C) slots; the
@@ -1102,8 +1164,10 @@ def step_categories(cfg) -> list:
         ("unembedding and loss", lambda n, sh: any(vocab & set(s) for s in sh), False),
     ]
     if any(kind != "mamba2" for kind in cfg.block_pattern):
+        flash_ops = ("FlashAttention", "FlashAttentionBackward", "flash_attention_cuda", "flash_attention_bwd_cuda")
+        cats.insert(2, ("attention (flash kernels)", lambda n, sh: n in flash_ops, True))
         cats.append(("attention (dense scores)",
-                     lambda n, sh: any(s.count(seq) >= 2 for s in sh) or
+                     lambda n, sh: any(len(s) >= 3 and s[-2:] == (seq, seq) and math.prod(s[:-2]) > 1 for s in sh) or
                      (n == "aten::bmm" and sum(s.count(seq) for s in sh) >= 2), False))
     if cfg.n_experts:
         spec = T._moe_spec(cfg)
@@ -1255,6 +1319,190 @@ def train_phase(arch: str, published_layers: int, layers: int, seed: int, fp_ops
     return line
 
 
+def step_grads(model, params, batch: dict, accum: int) -> tuple[float, dict]:
+    """The loss and the gradients a train step of ``build_train_step`` takes
+    on ``batch`` (the microbatches' float32 sum over ``accum``), without
+    the update: (loss, {parameter name: gradient})."""
+    import torch
+
+    named = dict(params.named_parameters())
+    grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in named.items()}
+    loss = 0.0
+    for i in range(accum):
+        mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i] for k, v in batch.items()}
+        total, _ = model.loss_fn(params, mb)
+        for acc, g in zip(grads.values(), torch.autograd.grad(total, list(named.values()))):
+            acc.add_(g)
+        loss += float(total.detach()) / accum
+    for acc in grads.values():
+        acc.div_(accum)
+    return loss, grads
+
+
+def grad_errors(got: dict, exp: dict) -> dict:
+    """Per gradient leaf, ||got - exp|| / ||exp||."""
+    return {n: float((got[n] - e).norm() / e.norm().clamp_min(1e-30)) for n, e in exp.items()}
+
+
+def flash_counts() -> dict:
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+
+    return {"forward": flash_attention_cuda.launches, "backward": flash_attention_cuda.backward_launches}
+
+
+def zero_flash_counts() -> None:
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+
+    flash_attention_cuda.launches = flash_attention_cuda.windowed_launches = 0
+    flash_attention_cuda.backward_launches = 0
+
+
+def chunked_train_traffic(model, dense, data, opt, state, sync) -> tuple[dict, dict]:
+    """Phase 4e's traffic. ``model`` is the arch with attn_impl="chunked",
+    ``dense`` the same with "dense" (the same parameters fit both). (b)
+    Step 0's loss and gradients (``step_grads``) through each on step 0's
+    batch from ``state``: the losses within 1e-2 relative, each leaf's
+    relative gradient error reported. (a) ``CHUNKED_STEPS`` steps of the
+    port's ``train_loop`` through "chunked" with no checkpoint hook, one call a
+    step, the flash counts set to 0 just before each and read just after;
+    then one more step through "dense", the yardstick of (d). Returns (the
+    state, the measurements)."""
+    import torch
+
+    from repro_torch.train import TrainConfig, train_loop
+
+    batch = {k: torch.as_tensor(v, device=model.device) for k, v in data.batch(0).items()}
+    loss_c, grads_c = step_grads(model, state["params"], batch, TRAIN_ACCUM)
+    loss_d, grads_d = step_grads(dense, state["params"], batch, TRAIN_ACCUM)
+    errs = grad_errors(grads_c, grads_d)
+    del grads_c, grads_d, batch
+    rel = abs(loss_c - loss_d) / abs(loss_d)
+    _check(rel <= 1e-2, f"step 0's loss through chunked {loss_c} and dense {loss_d}: {rel} relative, limit 1e-2")
+
+    on_card = model.device.type == "cuda"
+
+    def run(m, state, step: int):
+        tcfg = TrainConfig(steps=step + 1, accum=TRAIN_ACCUM, log_every=1, opt=opt)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero_flash_counts()
+        state, hist = train_loop(m, data, tcfg, state=state, start_step=step)
+        sync()
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        return state, {"step": step, "loss": hist[-1]["loss"], "s": hist[-1]["sec"], "peak_memory_bytes": peak,
+                       "flash_launches": flash_counts()}
+
+    chunked_steps = []
+    for step in range(CHUNKED_STEPS):
+        state, rec = run(model, state, step)
+        chunked_steps.append(rec)
+    state, dense_step = run(dense, state, CHUNKED_STEPS)
+    losses = [r["loss"] for r in chunked_steps] + [dense_step["loss"]]
+    _check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    return state, {
+        "step0": {"loss_chunked": loss_c, "loss_dense": loss_d, "loss_rel_err": rel,
+                  "grad_rel_err_max": max(errs.values()), "grad_rel_err_by_leaf": errs},
+        "steps": chunked_steps, "dense_step": dense_step,
+    }
+
+
+def chunked_grad_check(model, dense, params, batch: dict) -> dict:
+    """(c): the loss and every gradient leaf of one microbatch through
+    ``model`` ("chunked") against ``dense``, held to rtol = atol = 2e-4 per
+    element. Returns the errors."""
+    loss_c, grads_c = step_grads(model, params, batch, 1)
+    loss_d, grads_d = step_grads(dense, params, batch, 1)
+    _check(abs(loss_c - loss_d) <= 2e-4 + 2e-4 * abs(loss_d), f"float32 loss: chunked {loss_c}, dense {loss_d}")
+    beyond = {n: int((~((grads_c[n] - e).abs() <= 2e-4 + 2e-4 * e.abs())).sum()) for n, e in grads_d.items()}
+    bad = {n: c for n, c in beyond.items() if c}
+    _check(not bad, f"float32 gradient elements beyond rtol = atol = 2e-4, chunked against dense: {bad}")
+    return {"loss_chunked": loss_c, "loss_dense": loss_d,
+            "grad_max_abs_err": max(float((grads_c[n] - e).abs().max()) for n, e in grads_d.items()),
+            "grad_rel_err_by_leaf": grad_errors(grads_c, grads_d), "leaves": len(grads_d)}
+
+
+def chunked_train_phase(seed: int) -> dict:
+    """Phase 4e: phase 4b's model (``TRAIN_ARCH`` at ``TRAIN_LAYERS`` layers,
+    full width, bf16, ``remat="full"``, the port's init from ``seed``,
+    train_4k with its patch embeddings, global batch 2 in 2 microbatches,
+    AdamW) through ``attn_impl="chunked"``: the flash kernels in both
+    directions. ``chunked_train_traffic`` ((a): ``CHUNKED_FORWARD_LAUNCHES``
+    forward and ``CHUNKED_BACKWARD_LAUNCHES`` backward launches each step,
+    exact; (b)); (d) one chunked and one dense step under the profiler by
+    operation (``step_categories``: the kernels under attention by the
+    Function's events), the chunked steps' seconds, tokens/s and peak memory beside
+    the dense step's; (c) the model at depth 1 in float32 on one microbatch
+    of 1 x ``TRAIN_SEQ`` (``chunked_grad_check``: the fp32 kernels); (e)
+    nothing left allocated (``left_allocated_bytes``, checked by the
+    caller). Returns the ``train_chunked`` line."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import build_train_step, init_train_state
+
+    t_phase = time.perf_counter()
+    _warm_cublas()
+    _free()
+    mem_before = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS, attn_impl="chunked", remat="full")
+    model, dense = build_model(cfg), build_model(dataclasses.replace(cfg, attn_impl="dense"))
+    data = train_data(cfg, model.device, seed)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    state = init_train_state(model, seed, opt)
+    state, line = chunked_train_traffic(model, dense, data, opt, state, torch.cuda.synchronize)
+    want = {"forward": CHUNKED_FORWARD_LAUNCHES, "backward": CHUNKED_BACKWARD_LAUNCHES}
+    got = [r["flash_launches"] for r in line["steps"]]
+    _check(got == [want] * CHUNKED_STEPS, f"flash launches a chunked step {got}, want {want} each")
+    _check(line["dense_step"]["flash_launches"] == {"forward": 0, "backward": 0},
+           f"the dense step launched the flash kernels: {line['dense_step']['flash_launches']}")
+
+    cats = step_categories(cfg)
+    profiles = {}
+    for name, m in (("chunked", model), ("dense", dense)):
+        step_fn = build_train_step(m, opt, TRAIN_ACCUM)
+        batch = {k: torch.as_tensor(v, device=m.device) for k, v in data.batch(CHUNKED_STEPS + 1).items()}
+        torch.cuda.reset_peak_memory_stats()
+        profiles[name] = profile_step_by_op(lambda: float(step_fn(state, batch)[1]["total_loss"]), cats)
+        profiles[name]["step_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        del step_fn, batch
+    del state, model, dense, data
+    _free()
+
+    # (c) depth 1, float32, one microbatch of one sequence
+    cfg32 = dataclasses.replace(cfg, n_layers=1, param_dtype=torch.float32)
+    m32, d32 = build_model(cfg32), build_model(dataclasses.replace(cfg32, attn_impl="dense"))
+    params = m32.init(seed)
+    batch = train_data(cfg32, m32.device, seed).batch(0)
+    batch = {k: torch.as_tensor(v, device=m32.device)[:1] for k, v in batch.items()}
+    zero_flash_counts()
+    line["float32_depth1"] = chunked_grad_check(m32, d32, params, batch)
+    line["float32_depth1"]["flash_launches"] = flash_counts()
+    _check(line["float32_depth1"]["flash_launches"] == {"forward": 2, "backward": 1},
+           f"float32 depth-1 launches {line['float32_depth1']['flash_launches']}, want 2 forward and 1 backward")
+    del m32, d32, params, batch
+    _free()
+
+    step_s = [r["s"] for r in line["steps"]]
+    line = {
+        "model": f"{TRAIN_ARCH}, {cfg.n_layers} layers, full width, {cfg.param_dtype}, attn_impl chunked "
+                 f"(the flash kernels forward and backward), remat {cfg.remat}, random weights (the port's init)",
+        "shape": f"train_4k: {cfg.n_frontend_tokens} patch + {TRAIN_SEQ - cfg.n_frontend_tokens} text positions, "
+                 f"global batch {TRAIN_BATCH} in {TRAIN_ACCUM} microbatches",
+        "reduced": {"n_layers": [32, TRAIN_LAYERS], "global_batch": [256, TRAIN_BATCH]},
+        **line,
+        "step_s": step_s, "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / s for s in step_s],
+        "dense_step_s": line["dense_step"]["s"],
+        "dense_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / line["dense_step"]["s"],
+        "profile_step": profiles["chunked"], "profile_dense_step": profiles["dense"],
+    }
+    _free()
+    line["left_allocated_bytes"] = torch.cuda.memory_allocated() - mem_before
+    line["phase_s"] = time.perf_counter() - t_phase
+    return line
+
+
 def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     """The (query, key) pairs the flash kernel's mask keeps visible."""
     import numpy as np
@@ -1355,14 +1603,17 @@ class FlashCheck:
         return got
 
 
-def flash_err_ratio(got, exp):
-    """|got - exp| / (|exp| + the RMS of exp's row over the last dim), in
-    float32; 0 where the two are equal, inf where only exp's row is 0."""
+def flash_err_ratio(got, exp, floor: float = 0.0):
+    """|got - exp| / (|exp| + the RMS of exp's row over the last dim +
+    ``floor`` x the RMS of all of exp), in float32; 0 where the two are
+    equal, inf where only exp's row is 0 (and ``floor`` is 0)."""
     import torch
 
     e = exp.float()
     d = (got.float() - e).abs()
     scale = e.abs() + e.square().mean(dim=-1, keepdim=True).sqrt()
+    if floor:
+        scale = scale + floor * e.square().mean().sqrt()
     return torch.where(d == 0, 0.0, d / scale)
 
 
@@ -1388,6 +1639,222 @@ def flash_grid_phase(check: FlashCheck, gen) -> None:
             check(*qkv(sq, skv, h, kh, hd, dtype), causal=causal, window=window,
                   what=f"flash {dtype} Sq={sq} Skv={skv} H={h} K={kh} hd={hd} causal={causal} window={window}")
     torch.cuda.synchronize()
+
+
+def flash_bwd_bound_ms(q, k, v, causal: bool, window: int) -> tuple[float, float]:
+    """(operations, bytes) lower bounds in ms of one backward call: 2 * (3
+    dqk + 2 dv) FLOP per visible pair and query head (q.k, dO.v and the
+    products into dq, dk, dv) over the bf16 tensor-core peak; q, k, v, the
+    output, dO and the lse read once and dq, dk, dv written once over the
+    HBM rate."""
+    b, sq, h, dqk = q.shape
+    dv = v.shape[-1]
+    flop = 2 * (3 * dqk + 2 * dv) * b * h * attention_pairs(sq, k.shape[1], causal, window)
+    nbytes = (2 * (q.numel() + k.numel() + v.numel()) + 2 * b * sq * h * dv) * q.element_size() + 4 * b * h * sq
+    return flop / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def library_attention_bwd_ms(q, k, v, dout, window: int, reps: int = 3) -> tuple[float, str]:
+    """The backward of PyTorch's ``scaled_dot_product_attention`` through
+    autograd on the kernel's inputs (transposed to its layout), as
+    ``library_attention_ms`` calls it forward: ms of ``torch.autograd.grad``
+    (CUDA events) under each fused backend that takes the call, the math
+    backend only when none does; returns the fastest and its backend."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (a.detach().transpose(1, 2).requires_grad_() for a in (q, k, v))
+    dot = dout.transpose(1, 2).contiguous()
+    kw = {"attn_mask": band_mask(q.shape[1], window, q.device)} if window else {"is_causal": True}
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        if times and backend == SDPBackend.MATH:
+            break
+        with sdpa_kernel([backend]):
+            try:  # a backend that does not take these inputs raises before it launches
+                out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+                torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+            except (RuntimeError, NotImplementedError):
+                continue
+            times[backend.name] = _timed(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
+                                         reps)
+            del out
+    _check(bool(times), "no scaled_dot_product_attention backend takes the backward")
+    name = min(times, key=times.get)
+    return times[name], name
+
+
+class FlashBwdCheck:
+    """Holds the backward kernel against its plain twin
+    (``ref.flash_attention_bwd_plain``) on the same q, k, v, forward output,
+    lse and dO (the forward kernel's output and lse, a random dO), and the
+    forward kernel's lse against the plain one
+    (``ref.flash_attention_lse_plain``). Keeps, over every comparison, the
+    elements of dq, dk and dv beyond ``FLASH_BWD_RTOL`` and of the lse
+    beyond ``FLASH_LSE_TOL`` (NaN included), the max |kernel - plain| and
+    the max ratio of the error to the limit's scale per dtype and gradient.
+    ``strict`` raises at the first comparison with an element beyond;
+    otherwise the comparisons that failed are listed in ``failed``. Its
+    launches are outside every path's count."""
+
+    def __init__(self, strict: bool = True):
+        self.strict = strict
+        self.mismatches = 0
+        self.lse_mismatches = 0
+        self.cases = 0
+        self.failed: list[tuple[str, int]] = []
+        self.max_abs_err = {"float32": 0.0, "bfloat16": 0.0}
+        self.max_err_ratio = {dt: {"dq": 0.0, "dk": 0.0, "dv": 0.0} for dt in ("float32", "bfloat16")}
+        self.max_lse_err = 0.0
+
+    def __call__(self, q, k, v, *, causal: bool, window: int, what: str, gen):
+        """Check the kernels at q, k, v and a dO drawn from ``gen``; returns
+        (the forward kernel's output, its lse, dO)."""
+        import torch
+
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.flash_attn import flash_attention_bwd_cuda, flash_attention_cuda
+
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
+        dout = torch.randn(o.shape, generator=gen, device=q.device).to(q.dtype)
+        _, lse_plain = ref.flash_attention_lse_plain(q, k, v, causal=causal, window=window)
+        inf = torch.isinf(lse_plain)
+        lse_err = torch.where(inf, 0.0, (lse - lse_plain).abs() / (1 + lse_plain.abs()))
+        n_bad = int((~(lse_err <= FLASH_LSE_TOL)).sum()) + int((torch.isinf(lse) != inf).sum())
+        self.lse_mismatches += n_bad
+        self.max_lse_err = max(self.max_lse_err, float(lse_err.max()))
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal=causal, window=window)
+        exp = ref.flash_attention_bwd_plain(q, k, v, o, lse, dout, causal=causal, window=window)
+        dt = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+        for name, g, e, x in zip(("dq", "dk", "dv"), got, exp, (q, k, v)):
+            _check(g.shape == x.shape and g.dtype == q.dtype, f"{what}: {name} {tuple(g.shape)} {g.dtype}")
+            ratio = flash_err_ratio(g, e, FLASH_BWD_ATOL / FLASH_BWD_RTOL[dt])
+            n_bad += int((~(ratio <= FLASH_BWD_RTOL[dt])).sum())
+            self.max_abs_err[dt] = max(self.max_abs_err[dt], float((g.float() - e.float()).abs().max()))
+            self.max_err_ratio[dt][name] = max(self.max_err_ratio[dt][name], float(ratio.max()))
+        self.cases += 1
+        self.mismatches += n_bad
+        if n_bad:
+            self.failed.append((what, n_bad))
+        _check(not (self.strict and n_bad), f"{what}: {n_bad} elements of lse, dq, dk, dv beyond tolerance")
+        return o, lse, dout
+
+
+def flash_bwd_grid_phase(check: FlashBwdCheck, gen) -> None:
+    """Phase 5's backward part: the backward kernel against its plain twin
+    on the (causal, window) x (H, K) grid at hd 128 (batch 2, 300 positions:
+    no whole number of tiles), then ragged and rectangular shapes (Sq >
+    Skv with a window, so late queries see no key; Sq < Skv, so late keys
+    are seen by none) and every other pair of head dims, float32 and
+    bfloat16."""
+    import torch
+
+    def qkv(b, sq, skv, h, kh, hd, vd, dtype):
+        shapes = ((b, sq, h, hd), (b, skv, kh, hd), (b, skv, kh, vd))
+        return [torch.randn(s, generator=gen, device=gen.device).to(dtype) for s in shapes]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal, window in ((True, 0), (True, 64), (False, 0)):
+            for h, kh in ((4, 4), (4, 2), (8, 1)):
+                check(*qkv(2, 300, 300, h, kh, 128, 128, dtype), causal=causal, window=window, gen=gen,
+                      what=f"flash bwd {dtype} causal={causal} window={window} H={h} K={kh}")
+        for sq, skv, h, kh, hd, vd, causal, window in (
+            (300, 100, 4, 2, 128, 128, True, 64), (100, 300, 4, 2, 128, 128, True, 0),
+            (257, 129, 8, 2, 128, 128, False, 0), (1000, 1000, 8, 2, 128, 128, True, 100),
+            (129, 129, 4, 2, 32, 32, True, 0), (200, 77, 4, 2, 64, 64, False, 0), (321, 321, 8, 2, 64, 64, True, 50),
+            (257, 257, 4, 2, 256, 256, True, 0), (300, 300, 4, 1, 256, 256, True, 100),
+            (257, 257, 8, 8, 96, 64, True, 0), (300, 129, 8, 2, 96, 64, True, 64),
+        ):
+            check(*qkv(1, sq, skv, h, kh, hd, vd, dtype), causal=causal, window=window, gen=gen,
+                  what=f"flash bwd {dtype} Sq={sq} Skv={skv} H={h} K={kh} hd={hd}/{vd} causal={causal} "
+                       f"window={window}")
+    torch.cuda.synchronize()
+
+
+# Each model's attention at its train shape (Sq = Skv = TRAIN_SEQ, batch 1,
+# causal): (name, H, K, dqk, dv, window).
+TRAIN_ATTENTION_SHAPES = (
+    ("llava-next-mistral-7b", 32, 8, 128, 128, 0),
+    ("qwen2.5-32b", 40, 8, 128, 128, 0),
+    ("qwen2-moe-a2.7b", 16, 16, 128, 128, 0),
+    ("gemma3-12b local", 16, 8, 256, 256, 1024),
+    ("gemma3-12b global", 16, 8, 256, 256, 0),
+    ("recurrentgemma-2b", 10, 1, 256, 256, 2048),
+    ("minicpm3-4b", 40, 40, 96, 64, 0),
+)
+
+
+def flash_bwd_entry(check: FlashBwdCheck, h: int, kh: int, dqk: int, dv: int, window: int, gen) -> dict:
+    """The backward kernel at a train shape (random q, k, v): held against
+    its twin in bf16 and float32, timed in bf16 (and in float32) beside the
+    twin and beside ``scaled_dot_product_attention``'s backward, with its
+    bound."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attn import flash_attention_bwd_cuda
+
+    shapes = ((1, TRAIN_SEQ, h, dqk), (1, TRAIN_SEQ, kh, dqk), (1, TRAIN_SEQ, kh, dv))
+    q, k, v = (torch.randn(s, generator=gen, device=gen.device).to(torch.bfloat16) for s in shapes)
+    what = f"flash bwd at q {shapes[0]}, k {shapes[1]}, v {shapes[2]}, window {window}"
+    qf, kf, vf = q.float(), k.float(), v.float()
+    of, lsef, doutf = check(qf, kf, vf, causal=True, window=window, gen=gen, what=what + ", float32")
+    ms_f32 = _timed(lambda: flash_attention_bwd_cuda(qf, kf, vf, of, lsef, doutf, window=window), 2)
+    del qf, kf, vf, of, lsef, doutf
+    o, lse, dout = check(q, k, v, causal=True, window=window, gen=gen, what=what + ", bf16")
+    torch.cuda.synchronize()
+    ms = _timed(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, dout, window=window), 5)
+    plain_ms = _timed(lambda: ref.flash_attention_bwd_plain(q, k, v, o, lse, dout, window=window), 1)
+    library_ms, backend = library_attention_bwd_ms(q, k, v, dout, window)
+    ops_ms, bytes_ms = flash_bwd_bound_ms(q, k, v, True, window)
+    return {
+        "shape": f"q {shapes[0]}, k {shapes[1]}, v {shapes[2]} bf16, causal" + (f", window {window}" if window else ""),
+        "ms": ms, "ms_float32": ms_f32, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "share_of_bound": max(ops_ms, bytes_ms) / ms,
+        "library_ms": library_ms, "library_call": f"scaled_dot_product_attention backward through autograd "
+                                                  f"({backend})" + (", boolean band mask" if window else ", is_causal"),
+        "tflops": ops_ms / ms * BF16_FLOP_PER_S * 1e-12,
+    }
+
+
+def flash_bwd_phase(gen) -> dict:
+    """Phase 5's backward part: the grid (``flash_bwd_grid_phase``) and each
+    model's train shape (``flash_bwd_entry``), the registers and spills of
+    each backward instance (``cuobjdump -res-usage``). Returns the
+    ``flash_attention_bwd_cuda`` row of the ``kernels`` line (its launches
+    are filled in by phase 4e's count)."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    check = FlashBwdCheck()
+    flash_bwd_grid_phase(check, gen)
+    grid_cases = check.cases
+    by_model = {name: flash_bwd_entry(check, h, kh, dqk, dv, window, gen)
+                for name, h, kh, dqk, dv, window in TRAIN_ATTENTION_SHAPES}
+    gc.collect()
+    torch.cuda.empty_cache()
+    usage = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-res-usage", str(_build._lib_path("flash_attn_bwd"))],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    llava = by_model["llava-next-mistral-7b"]
+    return {
+        "name": "flash_attention_bwd_cuda", "route": "cuda", "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "src/repro/models/layers.py:158",
+        "replaces_note": "no TPU kernel: the Pallas _flash_kernel (src/repro/kernels/flash_attn.py:32) has no "
+                         "backward; XLA differentiates chunked_attention's loop",
+        "launches": None, "mismatches": check.mismatches, "lse_mismatches": check.lse_mismatches,
+        "cases": check.cases, "grid_cases": grid_cases, "max_abs_err": max(check.max_abs_err.values()),
+        "max_abs_err_by_dtype": check.max_abs_err, "max_err_ratio": check.max_err_ratio,
+        "max_lse_err": check.max_lse_err, "rtol": FLASH_BWD_RTOL, "atol_of_rms": FLASH_BWD_ATOL,
+        "lse_tol": FLASH_LSE_TOL,
+        **{k: llava[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_call")},
+        "by_model": by_model, "resources": res_usage(usage),
+        "build_s": _build.build_seconds.get("flash_attn_bwd"),
+    }
 
 
 def profile_calls(fn, reps: int) -> dict:
@@ -2598,6 +3065,12 @@ def main() -> int:
                 row.setdefault("train_wave_by_arch", {})[arch] = line["kernel_wave"][row["name"]]
         phase_done(name)
 
+    # ---- 4e. the train path through the flash kernels, forward and backward
+    chunked = chunked_train_phase(args.seed)
+    print("train_chunked " + json.dumps(chunked))
+    _check(chunked["left_allocated_bytes"] == 0, f"phase 4e left {chunked['left_allocated_bytes']} B")
+    phase_done("4e train through the flash kernels, LLaVA-NeXT")
+
     # --------------------------------------- 5. flash kernel vs plain version
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -2608,9 +3081,15 @@ def main() -> int:
     print("flash vs plain: " + json.dumps({"cases": check.cases, "mismatches": check.mismatches,
                                            "max_abs_err": check.max_abs_err,
                                            "max_err_ratio": check.max_err_ratio, "rtol": FLASH_RTOL}))
+    bwd_row = flash_bwd_phase(gen)
+    bwd_row["launches"] = sum(r["flash_launches"]["backward"] for r in chunked["steps"])
+    bwd_row["launches_by_path"] = {f"{TRAIN_ARCH} train, chunked (4e), {CHUNKED_STEPS} steps": bwd_row["launches"],
+                                   f"{TRAIN_ARCH} float32 depth 1, one step": 1}
+    print("flash backward vs plain: " + json.dumps({k: bwd_row[k] for k in (
+        "cases", "mismatches", "lse_mismatches", "max_abs_err_by_dtype", "max_err_ratio", "max_lse_err", "rtol")}))
     gc.collect()
     torch.cuda.empty_cache()
-    phase_done("5 flash grid")
+    phase_done("5 flash grid, forward and backward")
 
     # ------------------------------------ 6. prefill at full width, 64 layers
     model = build_model(dataclasses.replace(get_config("qwen2.5-32b"), attn_impl="chunked"))
@@ -2668,6 +3147,8 @@ def main() -> int:
     flash_row["launches_by_path"]["qwen2.5-32b prefill on a (1, 1) mesh"] = flash_mesh_launches
     for arch, line in train_lines.items():
         flash_row["launches_by_path"][f"{arch} train"] = line["kernel_launches"]["flash_attention_cuda"]
+    flash_row["launches_by_path"][f"{TRAIN_ARCH} train, chunked (4e), {CHUNKED_STEPS} steps"] = sum(
+        r["flash_launches"]["forward"] for r in chunked["steps"])
     phase_done("10 MiniCPM3-4B")
 
     # ------------------------------- 11a. the dry runs (host passes)
@@ -2682,7 +3163,7 @@ def main() -> int:
     print("phases " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
     flash_row.update(mismatches=check.mismatches, cases=check.cases, max_abs_err=max(check.max_abs_err.values()),
                      max_abs_err_by_dtype=check.max_abs_err, max_err_ratio=check.max_err_ratio)
-    rows_out.append(flash_row)
+    rows_out += [flash_row, bwd_row]
     print(json.dumps({"kernels": rows_out}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -10,7 +10,10 @@
 // kv head h / (H / K); causal keeps kpos <= qpos (no offset); window > 0
 // also keeps kpos > qpos - window; out = acc / max(l, 1e-30), so a row
 // with no visible key writes 0; the m_safe / corr guards keep
-// exp(-inf - -inf) out of the sums.
+// exp(-inf - -inf) out of the sums. When asked (a non-null lse) it also
+// stores each row's log-sum-exp of its scaled scores, from which the
+// backward (csrc/flash_attn_bwd.cu) recomputes P; the output is the same
+// bits either way.
 //
 // What bounds it on this card: operations. Per (query, visible key) pair
 // it does 2 * (dqk + dv) FLOP (q.k and p.v) and reads each q, k, v element once
@@ -74,6 +77,7 @@ struct Args {
   float scale;
   int causal;
   int64_t window;
+  float* lse;  // (B, H, Sq) fp32 log-sum-exp of each row's scaled scores, or null: nothing stored
 };
 
 // The fp32 kernel's geometry at qk head dim HD: kParts threads per query
@@ -183,6 +187,8 @@ __global__ void __launch_bounds__(256) flash_fwd_simt(Args a) {
     T* op = static_cast<T*>(a.o) + ((b * a.Sq + qpos) * a.H + h) * DV;
 #pragma unroll
     for (int i = 0; i < kDptV; ++i) op[part + kParts * i] = from_f<T>(acc[i] * inv);
+    // m is the max of the scaled scores: lse = m + ln(l); -inf for a row that sees no key
+    if (a.lse != nullptr && part == 0) a.lse[(b * a.H + h) * a.Sq + qpos] = m == -INFINITY ? -INFINITY : m + logf(l);
   }
 }
 
@@ -651,6 +657,11 @@ __global__ void __launch_bounds__(Tiling<DQK, DV>::kThreads, 1)
       const int qpos = qrow0 + 8 * i;
       if (qpos >= sq) continue;  // rows past Sq came from TMA's zero fill
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      // m is the max of the unscaled scores and l sums exp2((s - m) * scale * log2(e)) =
+      // exp(scale * (s - m)), so in natural-log units lse = scale * m + ln(l)
+      if (a.lse != nullptr && (lane & 3) == 0) {
+        a.lse[(int64_t(b) * a.H + h) * sq + qpos] = m[i] == -INFINITY ? -INFINITY : m[i] * a.scale + logf(l[i]);
+      }
       __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o) + ((int64_t(b) * sq + qpos) * a.H + h) * DV + col;
 #pragma unroll
       for (int j = 0; j < DV / 8; ++j) {
@@ -750,14 +761,17 @@ cudaError_t dispatch(int dtype, cudaStream_t s, const Args& a) {
 // k, v 16-byte aligned and every stride of a dim longer than 1 a multiple
 // of 8 elements. Launches on `stream`; returns cudaGetLastError() as an
 // int (cudaErrorInvalidValue, 1, for an unsupported dtype, pair of head
-// dims or layout).
-extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int64_t B,
+// dims or layout). lse: null, or (B, H, Sq) float32 that takes each row's
+// log-sum-exp of its scaled scores (natural log; -inf where no key is
+// visible), what the backward (csrc/flash_attn_bwd.cu) recomputes P from.
+// The output does not depend on it.
+extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
                                  int64_t Sq, int64_t Skv, int64_t H, int64_t KH, int64_t hd, int64_t hd_v,
                                  const int64_t* strides, float scale, int causal, int64_t window,
                                  int dtype, void* stream) {
   Args a{q, k, v, o, B, Sq, Skv, H, KH,
          strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
-         strides[6], strides[7], strides[8], scale, causal, window};
+         strides[6], strides[7], strides[8], scale, causal, window, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 96 && hd_v == 64) return static_cast<int>(dispatch<96, 64>(dtype, s, a));

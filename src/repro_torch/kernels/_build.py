@@ -42,7 +42,13 @@ SIGNATURES = {
     },
     "flash_attn": {
         "flash_attn_launch": [
-            _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+            _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+            ctypes.POINTER(_I64), ctypes.c_float, ctypes.c_int, _I64, ctypes.c_int, _P,
+        ],
+    },
+    "flash_attn_bwd": {
+        "flash_attn_bwd_launch": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
             ctypes.POINTER(_I64), ctypes.c_float, ctypes.c_int, _I64, ctypes.c_int, _P,
         ],
     },

@@ -68,11 +68,14 @@ def flash_attention(
     """Fused attention, ``scale = 1/sqrt(dqk)``. Returns (B, Sq, H, dv).
 
     A CUDA tensor runs the hand-written kernel (``csrc/flash_attn.cu``) or
-    raises; a CPU tensor takes the plain chunked attention. The kernel
-    takes the (dqk, dv) pairs of ``flash_attn.HEAD_DIMS``: equal head dims
-    32-256, and MLA's (96, 64), where v's head dim is not q's. The JAX
-    package's ``use_pallas`` switch and its 24k ``Skv`` cap (a TPU VMEM
-    limit) are gone: the kernel streams K/V and takes any length."""
+    raises; a CPU tensor takes the plain chunked attention. Under grad the
+    call goes through ``flash_attn.FlashAttention``, whose backward is the
+    hand-written backward kernel (``csrc/flash_attn_bwd.cu``) on a CUDA
+    tensor. The kernels take the (dqk, dv) pairs of
+    ``flash_attn.HEAD_DIMS``: equal head dims 32-256, and MLA's (96, 64),
+    where v's head dim is not q's. The JAX package's ``use_pallas`` switch
+    and its 24k ``Skv`` cap (a TPU VMEM limit) are gone: the kernel
+    streams K/V and takes any length."""
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     _count_launch("flash")  # after the call: a refused launch is not counted
     return out

@@ -1,16 +1,25 @@
-"""Plain torch oracles for the dedup kernels.
+"""Plain torch oracles for the dedup kernels and for the flash kernel's
+backward.
 
-These define the *semantics*; the CUDA kernels in ``csrc/`` must match them
-bit-exactly (uint32 wrap-around arithmetic everywhere). torch has no shift,
-add or sum on ``torch.uint32`` on the CPU, so the arithmetic runs in int64
-and every result is cut back to 32 bits with ``& 0xFFFFFFFF``. Products are
-split at 16 bits so that no intermediate leaves the int64 range.
+The dedup oracles define the *semantics*; the CUDA kernels in ``csrc/``
+must match them bit-exactly (uint32 wrap-around arithmetic everywhere).
+torch has no shift, add or sum on ``torch.uint32`` on the CPU, so the
+arithmetic runs in int64 and every result is cut back to 32 bits with
+``& 0xFFFFFFFF``. Products are split at 16 bits so that no intermediate
+leaves the int64 range. Their inputs and outputs are ``torch.uint32``
+tensors.
 
-Inputs and outputs are ``torch.uint32`` tensors; every function runs on
-whatever device its input lies on.
+The attention twins (``flash_attention_lse_plain``,
+``flash_attention_bwd_plain``) write out the flash kernels' formulas on
+explicit (queries, keys) score blocks, in float32 (float64 for float64
+inputs), and are held to the kernels within a tolerance.
+
+Every function runs on whatever device its input lies on.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -155,3 +164,93 @@ def cdc_cut_mask(
     if cuts:
         out[torch.tensor(cuts, dtype=torch.int64, device=cand.device)] = True
     return out
+
+
+# ---------------------------------------------------------------------------
+# Attention with its log-sum-exp, and its backward, on explicit score blocks.
+#
+# Per query head h (kv head h // (H / K)), visible pair (i, j) (causal: j <=
+# i, no offset; window w > 0: j > i - w; scores scaled by ``scale``):
+#   lse_i = log sum_j exp(s_ij),  P_ij = exp(s_ij - lse_i),  O_i = sum_j P_ij v_j
+#   delta_i = sum_d dO_id O_id,  dS_ij = P_ij (dO_i . v_j - delta_i)
+#   dQ_i = scale sum_j dS_ij k_j,  dK_j = scale sum_(h, i) dS_ij q_i,
+#   dV_j = sum_(h, i) P_ij dO_i
+# A row that sees no key has lse -inf, P 0, O 0.
+# ---------------------------------------------------------------------------
+
+_BLOCK_ELEMENTS = 1 << 27  # score elements a query block may hold (512 MB in float32)
+
+
+def _attention_blocks(q, k, causal: bool, window: int):
+    """(compute dtype, grouped queries (B, Sq, K, R, dqk), k, and for each
+    query block (slice, its (nq, Skv) visibility mask)) of the twins."""
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    b, sq, h, dqk = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    qg = q.to(ct).reshape(b, sq, kh, h // kh, dqk)
+    rows = max(1, min(sq, _BLOCK_ELEMENTS // max(1, b * h * skv)))
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    blocks = []
+    for lo in range(0, sq, rows):
+        qpos = torch.arange(lo, min(sq, lo + rows), device=q.device)[:, None]
+        ok = torch.ones((qpos.shape[0], skv), dtype=torch.bool, device=q.device)
+        if causal:
+            ok = ok & (kpos <= qpos)
+        if window > 0:
+            ok = ok & (kpos > qpos - window)
+        blocks.append((slice(lo, lo + qpos.shape[0]), ok))
+    return ct, qg, k.to(ct), blocks
+
+
+def flash_attention_lse_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: int = 0, scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """q (B, Sq, H, dqk), k (B, Skv, K, dqk), v (B, Skv, K, dv) -> (out
+    (B, Sq, H, dv) in q's dtype, lse (B, H, Sq) float32; float64 for
+    float64 inputs): the forward kernel with its log-sum-exp."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    ct, qg, kf, blocks = _attention_blocks(q, k, causal, window)
+    b, sq, kh, rep, _ = qg.shape
+    vf = v.to(ct)
+    out = torch.empty((b, sq, kh, rep, v.shape[-1]), dtype=ct, device=q.device)
+    lse = torch.empty((b, kh, rep, sq), dtype=ct, device=q.device)
+    for sl, ok in blocks:
+        s = torch.einsum("bqkrd,bskd->bkrqs", qg[:, sl], kf) * scale
+        s = torch.where(ok, s, -math.inf)
+        m = torch.logsumexp(s, dim=-1)                                    # (B, K, R, nq); -inf where all masked
+        p = torch.where(ok, torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None]), 0.0)
+        out[:, sl] = torch.einsum("bkrqs,bskd->bqkrd", p, vf)
+        lse[..., sl] = m
+    return out.reshape(b, sq, kh * rep, -1).to(q.dtype), lse.reshape(b, kh * rep, sq)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+    causal: bool = True, window: int = 0, scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's formulas, written out (no autograd): the
+    gradients (dq, dk, dv) of attention at q, k, v from its output ``o``,
+    its log-sum-exp ``lse`` (B, H, Sq) and the output's gradient ``dout``
+    (B, Sq, H, dv), each in its input's shape and q's dtype."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    ct, qg, kf, blocks = _attention_blocks(q, k, causal, window)
+    b, sq, kh, rep, dqk = qg.shape
+    dv_ = v.shape[-1]
+    vf = v.to(ct)
+    dog = dout.to(ct).reshape(b, sq, kh, rep, dv_)
+    delta = (dog * o.to(ct).reshape(b, sq, kh, rep, dv_)).sum(-1)          # (B, Sq, K, R)
+    lse_g = lse.to(ct).reshape(b, kh, rep, sq)
+    dq = torch.empty((b, sq, kh, rep, dqk), dtype=ct, device=q.device)
+    dk = torch.zeros(kf.shape, dtype=ct, device=q.device)
+    dv = torch.zeros(vf.shape, dtype=ct, device=q.device)
+    for sl, ok in blocks:
+        s = torch.einsum("bqkrd,bskd->bkrqs", qg[:, sl], kf) * scale
+        lse_b = lse_g[..., sl, None]
+        p = torch.where(ok, torch.exp(s - torch.where(torch.isfinite(lse_b), lse_b, 0.0)), 0.0)
+        dv += torch.einsum("bkrqs,bqkrd->bskd", p, dog[:, sl])
+        dp = torch.einsum("bqkrd,bskd->bkrqs", dog[:, sl], vf)
+        ds = p * (dp - delta[:, sl].permute(0, 2, 3, 1)[..., None])
+        dq[:, sl] = torch.einsum("bkrqs,bskd->bqkrd", ds, kf) * scale
+        dk += torch.einsum("bkrqs,bqkrd->bskd", ds, qg[:, sl]) * scale
+    return dq.reshape(q.shape).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)

@@ -309,10 +309,12 @@ def mha(
     ``impl="chunked"`` self-attention runs the flash-attention kernel on a
     CUDA tensor (``ops.flash_attention``) and the plain ``chunked_attention``
     on a CPU tensor. The kernel takes ``mask_offset == 0`` only: any other
-    offset on a CUDA tensor raises rather than taking the plain route. The
-    kernel is forward only, so on a CUDA tensor this raises under grad when
-    the inputs require grad (train through ``impl="dense"``); the CPU route
-    is differentiable."""
+    offset on a CUDA tensor raises rather than taking the plain route.
+    Under grad a CUDA tensor goes through ``flash_attn.FlashAttention``:
+    the forward kernel, and in the backward pass the backward kernel (from
+    the forward's log-sum-exp); the CPU route is differentiated by
+    autograd through ``chunked_attention``, as XLA differentiates the
+    reference's loop."""
     b, sq, _ = x.shape
     src = x if kv_x is None else kv_x
     skv = src.shape[1]

@@ -7,8 +7,10 @@ low-rank path (``q_lora_rank``), the compressed KV latent ``c_kv``
 attention. With ``impl="chunked"`` a CUDA tensor runs the hand-written
 flash kernel on the concatenated (nope, rope) queries and keys, qk head dim
 ``qk_nope + qk_rope`` against v head dim ``v_head_dim`` (96 / 64 at
-MiniCPM3-4B's width): one launch a layer. A CPU tensor takes the plain
-``chunked_attention``; ``impl="dense"`` (training) the fp32-softmax einsums.
+MiniCPM3-4B's width): one launch a layer; under grad the backward kernel
+runs at the same head dims and scale (``flash_attn.FlashAttention``). A
+CPU tensor takes the plain ``chunked_attention``; ``impl="dense"`` the
+fp32-softmax einsums.
 
 Decode: the *absorbed* form, as in the reference. The per-head expansions
 ``w_uk`` / ``w_uv`` are folded into the query and the output, so attention
@@ -140,7 +142,7 @@ def mla_prefill(p: MLA, s: MLASpec, x: torch.Tensor, positions: torch.Tensor, ma
             return torch.einsum("bhqs,bshd->bqhd", w, v).flatten(2)
         q_full = torch.cat([q_nope, q_rope], dim=-1)                          # (B, S, H, qk)
         k_full = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], s.qk_rope_head_dim)], dim=-1)
-        if x.device.type == "cuda":  # the flash kernel at (qk, v) head dims; its scale is 1/sqrt(qk)
+        if x.device.type == "cuda":  # the flash kernels at (qk, v) head dims, both directions; scale 1/sqrt(qk)
             o = ops.flash_attention(q_full, k_full, v, causal=True)
         else:
             o = chunked_attention(

@@ -52,7 +52,7 @@ from repro_torch.train.loop import build_train_step, init_train_state
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-ARCHS = {"qwen": "qwen2.5-32b", "llava": "llava-next-mistral-7b"}
+ARCHS = {"qwen": "qwen2.5-32b", "llava": "llava-next-mistral-7b", "gemma3": "gemma3-12b", "minicpm3": "minicpm3-4b"}
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

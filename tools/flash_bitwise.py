@@ -12,8 +12,11 @@ head dim the two share (32, 64, 128, 256, k and v alike) runs float32 and
 bfloat16 on five shapes (GQA, causal, windowed, ragged and rectangular),
 random from ``--seed``, through both libraries' C entry points. An older
 entry point takes one head dim; one that takes v's head dim too
-(``hd_v``) is called with it. It prints one JSON line per case and a
-verdict, and exits 1 if any output differs in any bit.
+(``hd_v``) is called with it, and one that takes an ``lse`` buffer with a
+null one. Where this tree's entry point takes ``lse``, each case runs it
+twice, without and with the buffer, and both outputs must equal the other
+tree's. It prints one JSON line per case and a verdict, and exits 1 if
+any output differs in any bit.
 """
 
 from __future__ import annotations
@@ -35,30 +38,34 @@ SHAPES = ((700, 700, 40, 8, True, 0), (300, 100, 4, 2, True, 64), (384, 255, 4, 
           (4097, 4097, 8, 2, True, 0), (100, 100, 8, 2, True, 0))
 
 
-def build(cu: Path, out: Path) -> tuple[ctypes.CDLL, bool]:
-    """The library of ``cu`` and whether its entry point takes ``hd_v``."""
+def build(cu: Path, out: Path) -> tuple[ctypes.CDLL, bool, bool]:
+    """The library of ``cu``, whether its entry point takes ``hd_v`` and
+    whether it takes ``lse``."""
     from repro_torch.kernels import _build
 
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(cu)], check=True, capture_output=True)
-    two = "int64_t hd_v" in cu.read_text()
+    text = cu.read_text()
+    two, has_lse = "int64_t hd_v" in text, "void* o, float* lse" in text
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int64
     dims = [i, i] if two else [i]
-    lib.flash_attn_launch.argtypes = [p, p, p, p, i, i, i, i, i, *dims, ctypes.POINTER(i), ctypes.c_float,
-                                      ctypes.c_int, i, ctypes.c_int, p]
+    lib.flash_attn_launch.argtypes = [p, p, p, p, *([p] if has_lse else []), i, i, i, i, i, *dims,
+                                      ctypes.POINTER(i), ctypes.c_float, ctypes.c_int, i, ctypes.c_int, p]
     lib.flash_attn_launch.restype = ctypes.c_int
-    return lib, two
+    return lib, two, has_lse
 
 
-def run(lib: ctypes.CDLL, two: bool, q, k, v, causal: bool, window: int):
+def run(lib: ctypes.CDLL, two: bool, has_lse: bool, q, k, v, causal: bool, window: int, with_lse: bool = False):
     import torch
 
     b, sq, h, hd = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     dims = [hd, hd] if two else [hd]
-    err = lib.flash_attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1], h,
-                                k.shape[2], *dims, strides, 1.0 / math.sqrt(hd), int(causal), window,
+    lse_arg = [0 if lse is None else lse.data_ptr()] if has_lse else []
+    err = lib.flash_attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse_arg, b, sq,
+                                k.shape[1], h, k.shape[2], *dims, strides, 1.0 / math.sqrt(hd), int(causal), window,
                                 1 if q.dtype == torch.bfloat16 else 0, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attn_launch: CUDA error {err}")
@@ -79,8 +86,8 @@ def main() -> int:
         return 2
     rel = Path("src/repro_torch/csrc/flash_attn.cu")
     with tempfile.TemporaryDirectory() as tmp:
-        here, here_two = build(ROOT / rel, Path(tmp) / "here.so")
-        other, other_two = build(args.src / rel, Path(tmp) / "other.so")
+        here, *here_kw = build(ROOT / rel, Path(tmp) / "here.so")
+        other, *other_kw = build(args.src / rel, Path(tmp) / "other.so")
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         same = []
         for hd in (32, 64, 128, 256):
@@ -88,12 +95,18 @@ def main() -> int:
                 for sq, skv, h, kh, causal, window in SHAPES:
                     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                                for shape in ((1, sq, h, hd), (1, skv, kh, hd), (1, skv, kh, hd)))
-                    equal = torch.equal(run(here, here_two, q, k, v, causal, window),
-                                        run(other, other_two, q, k, v, causal, window))
+                    exp = run(other, *other_kw, q, k, v, causal, window)
+                    equal = torch.equal(run(here, *here_kw, q, k, v, causal, window), exp)
+                    rec = {"hd": hd, "dtype": str(dtype).removeprefix("torch."), "sq": sq, "skv": skv,
+                           "heads": [h, kh], "causal": causal, "window": window, "bitwise_equal": equal}
+                    if here_kw[1]:
+                        rec["bitwise_equal_with_lse"] = torch.equal(
+                            run(here, *here_kw, q, k, v, causal, window, with_lse=True), exp)
+                        equal = equal and rec["bitwise_equal_with_lse"]
                     same.append(equal)
-                    print(json.dumps({"hd": hd, "dtype": str(dtype).removeprefix("torch."), "sq": sq, "skv": skv,
-                                      "heads": [h, kh], "causal": causal, "window": window, "bitwise_equal": equal}))
-    print(json.dumps({"ok": all(same), "cases": len(same), "equal": sum(same)}))
+                    print(json.dumps(rec))
+    print(json.dumps({"ok": all(same), "cases": len(same), "equal": sum(same),
+                      "with_lse": bool(here_kw[1])}))
     return 0 if all(same) else 1
 
 

@@ -41,6 +41,25 @@ beyond the reference's fixed 3e-2, for comparison). It prints one JSON
 line per build and exits non-zero unless the sound build passes every
 comparison, each tile mutant fails the grid and every layer check, and
 each head-dim-256 mutant fails every Gemma3-12B bfloat16 check.
+
+The backward kernel (``src/repro_torch/csrc/flash_attn_bwd.cu``) gets four
+mutants of its own, each made by one text edit that acts on its bf16 and
+float32 kernels alike:
+
+- ``bwd_dkdv_drop_last_query_tile``: a dK / dV block skips the last query
+  tile that can see its keys;
+- ``bwd_dkdv_drop_first_tile_of_last_head``: it skips the first query tile
+  of the last query head of its group (a GQA sum missing one head's part);
+- ``bwd_dq_drop_last_kv_tile`` and ``bwd_dq_drop_first_kv_tile``: a dQ
+  block skips its last or its first kv tile.
+
+With the sound backward and each mutant it runs ``chip_smoke.py``'s
+phase-5 backward grid and the backward checks at each model's train shape
+(``chip_smoke.TRAIN_ATTENTION_SHAPES``: Sq = Skv = 4,096, random inputs
+from ``--seed``) in bf16 and float32, counting the elements beyond
+``chip_smoke.FLASH_BWD_RTOL``. The sound build must pass every check and
+each mutant must fail the grid and every train-shape check in both
+dtypes: that is what sets the bf16 rtol.
 """
 
 from __future__ import annotations
@@ -79,9 +98,29 @@ TILE_MUTANTS = {
 }
 
 
+# The backward mutants: (loop header, the line each adds at the top of the
+# loop). Each header opens one loop of the float32 kernel and one of the
+# bf16 kernel.
+DKDV_LOOP = "    for (int64_t qt = qt_lo; qt < qt_hi; ++qt) {\n"
+DQ_LOOP = "  for (int64_t kt = kt_lo; kt < kt_hi; ++kt) {\n"
+BWD_MUTANTS = {
+    "bwd_dkdv_drop_last_query_tile": (DKDV_LOOP, "      if (qt == qt_hi - 1) continue;\n"),
+    "bwd_dkdv_drop_first_tile_of_last_head": (DKDV_LOOP, "      if (hr == rep - 1 && qt == qt_lo) continue;\n"),
+    "bwd_dq_drop_last_kv_tile": (DQ_LOOP, "    if (kt == kt_hi - 1) continue;\n"),
+    "bwd_dq_drop_first_kv_tile": (DQ_LOOP, "    if (kt == kt_lo) continue;\n"),
+}
+
+
 def _replace_once(src: str, old: str, new: str) -> str:
     assert src.count(old) == 1, f"flash_attn.cu changed: {old!r} is not there once"
     return src.replace(old, new)
+
+
+def bwd_mutant_source(src: str, name: str) -> str:
+    """The backward's source with mutant ``name``'s edit in both kernels."""
+    loop, line = BWD_MUTANTS[name]
+    assert src.count(loop) == 2, f"flash_attn_bwd.cu changed: {loop!r} is not there twice"
+    return src.replace(loop, loop + line)
 
 
 def mutant_source(src: str, name: str) -> str:
@@ -93,11 +132,11 @@ def mutant_source(src: str, name: str) -> str:
     return _replace_once(src, TILE_KIND, TILE_KIND_MUTANT.format(skip=skip))
 
 
-def load_library(path: Path) -> ctypes.CDLL:
+def load_library(path: Path, name: str = "flash_attn") -> ctypes.CDLL:
     from repro_torch.kernels import _build
 
     lib = ctypes.CDLL(str(path))
-    for fn, argtypes in _build.SIGNATURES["flash_attn"].items():
+    for fn, argtypes in _build.SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -138,6 +177,32 @@ def run_checks(seed: int, layers: dict) -> dict:
     return out
 
 
+def run_bwd_checks(seed: int) -> dict:
+    """The phase-5 backward grid and the train-shape backward checks in bf16
+    and float32 with the loaded backward build, every comparison to its
+    end."""
+    import torch
+
+    import chip_smoke
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grid = chip_smoke.FlashBwdCheck(strict=False)
+    chip_smoke.flash_bwd_grid_phase(grid, gen)
+    out = {"grid_cases": grid.cases, "grid_cases_failed": len(grid.failed), "grid_mismatches": grid.mismatches,
+           "grid_max_err_ratio": grid.max_err_ratio}
+    for name, h, kh, dqk, dv, window in chip_smoke.TRAIN_ATTENTION_SHAPES:
+        s = chip_smoke.TRAIN_SEQ
+        shapes = ((1, s, h, dqk), (1, s, kh, dqk), (1, s, kh, dv))
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes)
+        for dt, args in (("bf16", (q, k, v)), ("fp32", (q.float(), k.float(), v.float()))):
+            check = chip_smoke.FlashBwdCheck(strict=False)
+            check(*args, causal=True, window=window, gen=gen, what=f"{name}, {dt}")
+            out[f"{name}, {dt}"] = {"mismatches": check.mismatches, "max_err_ratio": check.max_err_ratio}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def layer_inputs(arch: str, n_layers: int, kind: str, gen) -> tuple:
     """q, k, v of the first ``kind`` layer of ``arch`` at full width, one
     pattern group built, from ``PREFILL_TOKENS`` random tokens."""
@@ -175,20 +240,25 @@ def main() -> int:
     from repro_torch.models import build_model
 
     src = (_build.CSRC / "flash_attn.cu").read_text()
+    bwd_src = (_build.CSRC / "flash_attn_bwd.cu").read_text()
     with tempfile.TemporaryDirectory() as tmp:
         jobs = {}
-        for name in [*TILE_MUTANTS, *HD256_MUTANTS]:
+        for name in [*TILE_MUTANTS, *HD256_MUTANTS, *BWD_MUTANTS]:
             cu, so = Path(tmp) / f"{name}.cu", Path(tmp) / f"{name}.so"
-            cu.write_text(mutant_source(src, name))
+            cu.write_text(bwd_mutant_source(bwd_src, name) if name in BWD_MUTANTS else mutant_source(src, name))
             jobs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
                                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         sound = _build.load("flash_attn")
-        libs = {"sound": sound}
+        sound_bwd = _build.load("flash_attn_bwd")
+        libs, bwd_libs = {"sound": sound}, {"sound": sound_bwd}
         for name, (so, proc) in jobs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for mutant {name}:\n{log}")
-            libs[name] = load_library(so)
+            if name in BWD_MUTANTS:
+                bwd_libs[name] = load_library(so, "flash_attn_bwd")
+            else:
+                libs[name] = load_library(so)
 
         gen = torch.Generator(device=torch.device("cuda")).manual_seed(args.seed)
         (q, k, v), _ = layer_inputs("qwen2.5-32b", 1, "attn_global", gen)
@@ -210,8 +280,14 @@ def main() -> int:
         for name, lib in libs.items():
             _build._loaded["flash_attn"] = lib
             results[name] = run_checks(args.seed, layers)
-            print(f"{name} " + json.dumps(results[name]))
+            print(f"{name} " + json.dumps(results[name]), flush=True)
         _build._loaded["flash_attn"] = sound
+        bwd_results = {}
+        for name, lib in bwd_libs.items():
+            _build._loaded["flash_attn_bwd"] = lib
+            bwd_results[name] = run_bwd_checks(args.seed)
+            print(f"backward {name} " + json.dumps(bwd_results[name]), flush=True)
+        _build._loaded["flash_attn_bwd"] = sound_bwd
 
     caught = lambda r, names: all(r[n]["mismatches"] > 0 for n in names)
     gemma_bf16 = [n for n in layers if n.startswith("gemma3") and n.endswith("bf16")]
@@ -221,8 +297,16 @@ def main() -> int:
         verdict[name] = results[name]["grid_mismatches"] > 0 and caught(results[name], layers)
     for name in HD256_MUTANTS:
         verdict[name] = caught(results[name], gemma_bf16)
+    shapes = [k for k in bwd_results["sound"] if k.endswith(("bf16", "fp32"))]
+    verdict["bwd_sound"] = bwd_results["sound"]["grid_mismatches"] == 0 and \
+        all(bwd_results["sound"][k]["mismatches"] == 0 for k in shapes)
+    for name in BWD_MUTANTS:
+        verdict[name] = bwd_results[name]["grid_mismatches"] > 0 and caught(bwd_results[name], shapes)
     ok = all(verdict.values())
-    print(json.dumps({"ok": ok, "verdict": verdict, "rtol": chip_smoke.FLASH_RTOL}))
+    print(json.dumps({"ok": ok, "verdict": verdict, "rtol": chip_smoke.FLASH_RTOL,
+                      "bwd_rtol": chip_smoke.FLASH_BWD_RTOL,
+                      "bwd_sound_max_err_ratio": {k: v["max_err_ratio"] for k, v in bwd_results["sound"].items()
+                                                  if k in shapes}}))
     return 0 if ok else 1
 
 
