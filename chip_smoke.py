@@ -91,8 +91,12 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    float32 and bfloat16; then at each model's train shape
    (``TRAIN_ATTENTION_SHAPES``: Sq = Skv = 4,096, batch 1) checked in both
    dtypes and timed in bf16 beside the twin, its bound and
-   ``scaled_dot_product_attention``'s backward (timed only), its
-   registers and spills from ``cuobjdump -res-usage``;
+   ``scaled_dot_product_attention``'s backward (timed only); at
+   LLaVA-NeXT's and RecurrentGemma-2B's shapes the bf16 backward run
+   twice more, dq, dk and dv equal bit for bit (``BITWISE_SHAPES``); its
+   registers and spills from ``cuobjdump -res-usage`` (no stack or local
+   memory in a bf16 instance) and its SASS (``HGMMA`` in every ``wgmma``
+   instance, no ``HMMA`` anywhere);
 6. the prefill path at full width: Qwen2.5-32B from the port's registry
    with ``attn_impl="chunked"``, all 64 layers, bf16, random weights from
    ``--seed`` on the card (65.5 GB); prefill 1 x 8,192 tokens into a
@@ -313,14 +317,15 @@ def res_usage(text: str) -> dict[str, dict]:
     """Registers, stack and local (spill) bytes per thread of each kernel in
     ``cuobjdump -res-usage`` text, keyed ``name<dims>`` by its integer
     template arguments from the mangled name (``flash_fwd_wgmma<96, 64>``,
-    ``flash_fwd_simt<256, 256>``)."""
+    ``flash_fwd_simt<256, 256>``), a bf16 type argument as ``bf16``
+    (``flash_bwd_delta<bf16, 128>``)."""
     out = {}
     for fn, reg, stack, local in re.findall(
         r"Function ([^\s:]+):\s*REG:(\d+)\s+STACK:(\d+)\s+SHARED:\d+\s+LOCAL:(\d+)", text
     ):
-        name = re.search(r"\d+([a-z_]+)I(?:f)?((?:Li\d+E)+)", fn)
+        name = re.search(r"\d+([a-z_]+)I(f|13__nv_bfloat16)?((?:Li\d+E)+)", fn)
         if name:
-            dims = ", ".join(re.findall(r"Li(\d+)E", name.group(2)))
+            dims = ", ".join(["bf16"] * (name.group(2) == "13__nv_bfloat16") + re.findall(r"Li(\d+)E", name.group(3)))
             out[f"{name.group(1)}<{dims}>"] = {
                 "registers": int(reg), "stack_bytes": int(stack), "local_bytes": int(local),
             }
@@ -1774,7 +1779,10 @@ def flash_bwd_grid_phase(check: FlashBwdCheck, gen) -> None:
 
 
 # Each model's attention at its train shape (Sq = Skv = TRAIN_SEQ, batch 1,
-# causal): (name, H, K, dqk, dv, window).
+# causal): (name, H, K, dqk, dv, window). At BITWISE_SHAPES the bf16
+# backward runs twice more and must repeat bit for bit: LLaVA-NeXT's (the
+# 4e step's) and RecurrentGemma-2B's, where one kv head makes the wrapper
+# split the query heads over blocks and add their fp32 parts.
 TRAIN_ATTENTION_SHAPES = (
     ("llava-next-mistral-7b", 32, 8, 128, 128, 0),
     ("qwen2.5-32b", 40, 8, 128, 128, 0),
@@ -1784,13 +1792,17 @@ TRAIN_ATTENTION_SHAPES = (
     ("recurrentgemma-2b", 10, 1, 256, 256, 2048),
     ("minicpm3-4b", 40, 40, 96, 64, 0),
 )
+BITWISE_SHAPES = ("llava-next-mistral-7b", "recurrentgemma-2b")
 
 
-def flash_bwd_entry(check: FlashBwdCheck, h: int, kh: int, dqk: int, dv: int, window: int, gen) -> dict:
+def flash_bwd_entry(check: FlashBwdCheck, h: int, kh: int, dqk: int, dv: int, window: int, gen,
+                    repeat: bool = False) -> dict:
     """The backward kernel at a train shape (random q, k, v): held against
     its twin in bf16 and float32, timed in bf16 (and in float32) beside the
     twin and beside ``scaled_dot_product_attention``'s backward, with its
-    bound."""
+    bound. With ``repeat`` the bf16 backward runs twice more on the same
+    inputs: ``bitwise_repeat`` says whether dq, dk and dv came out equal
+    bit for bit both times."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1805,6 +1817,12 @@ def flash_bwd_entry(check: FlashBwdCheck, h: int, kh: int, dqk: int, dv: int, wi
     del qf, kf, vf, of, lsef, doutf
     o, lse, dout = check(q, k, v, causal=True, window=window, gen=gen, what=what + ", bf16")
     torch.cuda.synchronize()
+    bitwise = None
+    if repeat:
+        first = flash_attention_bwd_cuda(q, k, v, o, lse, dout, window=window)
+        bitwise = all(all(torch.equal(a, b) for a, b in zip(first, flash_attention_bwd_cuda(
+            q, k, v, o, lse, dout, window=window))) for _ in range(2))
+        del first
     ms = _timed(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, dout, window=window), 5)
     plain_ms = _timed(lambda: ref.flash_attention_bwd_plain(q, k, v, o, lse, dout, window=window), 1)
     library_ms, backend = library_attention_bwd_ms(q, k, v, dout, window)
@@ -1815,31 +1833,45 @@ def flash_bwd_entry(check: FlashBwdCheck, h: int, kh: int, dqk: int, dv: int, wi
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "share_of_bound": max(ops_ms, bytes_ms) / ms,
         "library_ms": library_ms, "library_call": f"scaled_dot_product_attention backward through autograd "
                                                   f"({backend})" + (", boolean band mask" if window else ", is_causal"),
-        "tflops": ops_ms / ms * BF16_FLOP_PER_S * 1e-12,
+        "tflops": ops_ms / ms * BF16_FLOP_PER_S * 1e-12, "bitwise_repeat": bitwise,
     }
 
 
 def flash_bwd_phase(gen) -> dict:
     """Phase 5's backward part: the grid (``flash_bwd_grid_phase``) and each
-    model's train shape (``flash_bwd_entry``), the registers and spills of
-    each backward instance (``cuobjdump -res-usage``). Returns the
-    ``flash_attention_bwd_cuda`` row of the ``kernels`` line (its launches
-    are filled in by phase 4e's count)."""
+    model's train shape (``flash_bwd_entry``; bitwise repeats at
+    ``BITWISE_SHAPES``), the registers and spills of each backward instance
+    (``cuobjdump -res-usage``: no stack or local memory in a bf16 one) and
+    its SASS (``HGMMA`` in each ``wgmma`` instance, no ``HMMA``: no
+    ``mma.sync`` anywhere). Returns the ``flash_attention_bwd_cuda`` row of
+    the ``kernels`` line (its launches are filled in by phase 4e's
+    count)."""
     import torch
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attn import HEAD_DIMS
 
     check = FlashBwdCheck()
     flash_bwd_grid_phase(check, gen)
     grid_cases = check.cases
-    by_model = {name: flash_bwd_entry(check, h, kh, dqk, dv, window, gen)
+    by_model = {name: flash_bwd_entry(check, h, kh, dqk, dv, window, gen, repeat=name in BITWISE_SHAPES)
                 for name, h, kh, dqk, dv, window in TRAIN_ATTENTION_SHAPES}
+    bitwise = {name: by_model[name]["bitwise_repeat"] for name in BITWISE_SHAPES}
+    _check(all(bitwise.values()), f"the bf16 backward did not repeat bit for bit: {bitwise}")
     gc.collect()
     torch.cuda.empty_cache()
-    usage = subprocess.run(
-        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-res-usage", str(_build._lib_path("flash_attn_bwd"))],
-        capture_output=True, text=True, check=True,
-    ).stdout
+    cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
+    lib = str(_build._lib_path("flash_attn_bwd"))
+    usage = res_usage(subprocess.run([cuobjdump, "-res-usage", lib], capture_output=True, text=True, check=True).stdout)
+    bf16 = {k: r for k, r in usage.items() if "wgmma" in k or "dkdv_sum" in k or "<bf16" in k}
+    _check(sum("wgmma" in k for k in bf16) == 2 * len(HEAD_DIMS) and
+           all(r["stack_bytes"] == r["local_bytes"] == 0 for r in bf16.values()),
+           f"the bf16 backward's instances must use no stack or local memory: {bf16}")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    hgmma = {re.sub(r".*flash_bwd_", "flash_bwd_", f.split("\n", 1)[0].strip())[:60]: f.count("HGMMA")
+             for f in sass.split("Function : ")[1:] if "wgmma" in f.split("\n", 1)[0]}
+    _check(len(hgmma) == 2 * len(HEAD_DIMS) and all(hgmma.values()) and "HMMA" not in sass,
+           f"every bf16 backward instance runs HGMMA and none HMMA: {hgmma}, HMMA in the SASS: {'HMMA' in sass}")
     llava = by_model["llava-next-mistral-7b"]
     return {
         "name": "flash_attention_bwd_cuda", "route": "cuda", "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
@@ -1852,7 +1884,8 @@ def flash_bwd_phase(gen) -> dict:
         "max_lse_err": check.max_lse_err, "rtol": FLASH_BWD_RTOL, "atol_of_rms": FLASH_BWD_ATOL,
         "lse_tol": FLASH_LSE_TOL,
         **{k: llava[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_call")},
-        "by_model": by_model, "resources": res_usage(usage),
+        "by_model": by_model, "bitwise_repeat": bitwise, "resources": usage,
+        "registers_bf16": {k: r["registers"] for k, r in bf16.items()}, "hgmma_by_instance": hgmma,
         "build_s": _build.build_seconds.get("flash_attn_bwd"),
     }
 

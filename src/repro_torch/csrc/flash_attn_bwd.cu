@@ -27,44 +27,91 @@
 // products into dq, dk, dv) and reads q, k, v, o, dO once; at LLaVA-NeXT's
 // train shape (Sq = Skv = 4096, H 32, K 8, hd 128, causal) that is 3.4e11
 // FLOP, ~0.35 ms at the 989 TFLOP/s bf16 peak against ~0.03 ms of HBM.
-// This design recomputes q.k and dO.v in the dQ pass (2 (dqk + dv) FLOP a
-// pair more) to need no atomics.
+// The dQ kernel below recomputes q.k and dO.v, 2 (dqk + dv) FLOP a pair
+// more (1.4x at hd 128: ~0.49 ms at the peak), and at hd 256 the two
+// consumers of a dK / dV block both compute them as well.
 //
-// What the design does about it: nothing yet for speed. It is simple and
-// deterministic, so a gradient repeats bit for bit from run to run: three
-// kernels, no atomics, each output element written by one thread.
-//  1. flash_bwd_delta: delta = rowsum(dO * O) in fp32, one warp a row.
-//  2. dK, dV: one block per (batch, kv head, 64-key tile) walks the query
-//     tiles that can see its keys (the forward's tile range transposed:
-//     under causal the queries from the tile's first key on, with a window
-//     those before its last key + window) of every query head of its
-//     group, and keeps dK and dV in fp32 registers. At hd 256 the
-//     accumulators would not fit beside the scores, so each block owns a
-//     half of the head dims (blockIdx.z) and recomputes the scores.
-//  3. dQ: one block per (batch, head, 64-query tile) walks its kv tiles
-//     (the forward's range), dQ in fp32 registers.
-//  - bf16: mma.sync m16n8k16 with fp32 accumulators (flash_bwd_dkdv_mma,
-//    flash_bwd_dq_mma), 4 warps of 16 rows each. Tiles are loaded with
-//    16-byte loads into shared memory rows padded by 8 elements (no bank
-//    conflicts in the fragment loads) and synchronously: no ring, no TMA,
-//    no wgmma (later work). The dK / dV pass computes S^T = K Q^T and dP^T
-//    = V dO^T, so P^T and dS^T are already the A fragments of dV += P^T dO
-//    and dK += dS^T Q; the dQ pass computes S = Q K^T, so dS is the A
-//    fragment of dQ += dS K. P and dS are rounded to bf16 for those
-//    products, as the forward rounds P.
+// What the design does about it (bf16), in the shape of FlashAttention-3's
+// backward: the tensor cores through wgmma only, tiles brought by TMA into
+// a ring of 3 stages (2 in the dK / dV kernel at hd 256; full and empty
+// mbarriers) that runs ahead of the products, no mask work on interior
+// tiles. A block is two consumer warpgroups, 256 threads, and consumer
+// thread 0 issues the loads (the forward's hd-256 shape): it fills the
+// ring, and after each tile refills the stage of the tile before it, which
+// the other consumer has long released, so the loading thread's consumer
+// does not wait for the other one to finish the tile (`refill`; with 2
+// stages it refills the stage just used). A producer warp or warpgroup
+// beside them would put 3 warps on an SM sub-partition, and ptxas compiles
+// every thread of such a block within 168 registers whatever setmaxnreg
+// says: measured on an H100 build, the dK / dV kernel at hd 128 then
+// spilled 684 bytes (a producer warp) and 572 (a producer warpgroup,
+// setmaxnreg 40 / 232), where its consumer holds 64 + 64 fp32 registers of
+// dK and dV and 32 + 32 of S^T and dP^T. At 8 warps a thread has 255.
+//  1. flash_bwd_delta: delta = rowsum(dO * O) in fp32, one warp a row, and
+//     lse2 = lse * log2(e), both in rows padded to a multiple of kBM: a
+//     padded row has delta 0 and lse2 +inf, as has a row that sees no key,
+//     so its P = exp2(s c - lse2) is 0 with no mask.
+//  2. flash_bwd_dkdv_wgmma: a block owns a tile of kKB keys of one (batch,
+//     kv head) and walks its share of the group's query heads, and for each
+//     the query tiles of kBM = 64 rows that can see the keys (the forward's
+//     tile range transposed). Thread 0 loads K and V once, then Q, dO
+//     (tensor maps) and the tile's lse2 and delta rows (bulk copies) into
+//     the ring. A consumer computes S^T = K Q^T and dP^T = V dO^T as SS
+//     wgmma (64 keys x 64 queries) from the swizzled panels, two commit
+//     groups, so that P^T = exp2(S^T c - lse2) (c = scale log2(e)) runs
+//     while dP^T's product does; P^T and dS^T = P^T (dP^T - delta) are
+//     packed into bf16 A fragments in registers (P and dS rounded to bf16
+//     for their products, as the forward rounds P), and dV += P^T dO and
+//     dK += dS^T Q run as RS wgmma with dO and Q read from the same stage
+//     as MN-major B operands (the descriptor's transpose bit): no copy, no
+//     transposed tile. Up to hd 128 a block owns 128 keys, 64 a consumer,
+//     and dK and dV stay in fp32 registers (64 + 64 a thread at hd 128).
+//     At hd 256 a block owns 64
+//     keys and each consumer half of dK's and dV's head dims: 64 keys x 256
+//     dims of both would need 256 registers a thread, so both consumers
+//     compute the same S^T and dP^T, and the K, V, Q, dO tiles of 64 rows
+//     fit in 194 KB of shared memory with the ring. Each (consumer, query
+//     tile) pair is skipped, full or an edge (the diagonal, the window's
+//     edge, the ragged ends: masked in int32); full tiles run no mask.
+//     Scheduling: gridDim.y walks the key tiles in ascending order and the
+//     card starts blocks in that order, so under causal masking, where the
+//     first key tiles see the most queries, the heaviest blocks go first.
+//  3. Head split: where B * K * (key tiles) is fewer blocks than the card
+//     has SMs (RecurrentGemma-2B: one kv head, 64 blocks at hd 256), the
+//     wrapper splits a group's query heads over head_split blocks. Each
+//     writes its fp32 dK and dV to scratch (`part`, from torch.empty) and
+//     flash_bwd_dkdv_sum adds the parts in split order.
+//  4. flash_bwd_dq_wgmma: dQ in the forward kernel's shape. A block owns
+//     128 query rows of one (batch, head), 64 a consumer, with Q and dO
+//     loaded once; thread 0 brings K and V tiles of kBN rows (64, 32 at hd
+//     256 where Q and dO take 128 KB) through the ring. A consumer
+//     recomputes S = Q K^T and dP = dO V^T (SS wgmma), forms dS as above
+//     and runs dQ += dS K as RS wgmma with K read MN-major. This is route
+//     (a): dQ is not summed across the dK / dV blocks. Route (b), adding
+//     each block's dQ part in a fixed order, needs blocks that wait on a
+//     per-query-tile semaphore for blocks that may not yet be resident;
+//     route (a) pays 2 (dqk + dv) FLOP a pair to need no ordering between
+//     blocks at all.
+//  Runs repeat bit for bit: each element of dq, dk, dv (and of a head
+//  split's part) is one thread's wgmma accumulator, summed in the order of
+//  the walk; the parts are added in split order; no atomics.
 //  - fp32: flash_bwd_dkdv_simt, flash_bwd_dq_simt, scalar fp32 FMA (TF32
 //    would not hold the fp32 tolerance), in the shape of flash_fwd_simt:
 //    4 threads a row (8 at hd 256), each holding a slice of the row's
 //    head dims; partial dot products meet by warp shuffles.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
 using bf16 = __nv_bfloat16;
 
 struct BwdArgs {
@@ -74,7 +121,9 @@ struct BwdArgs {
   const void* o;     // contiguous (B, Sq, H, dv)
   const void* dout;  // contiguous (B, Sq, H, dv)
   const float* lse;  // (B, H, Sq)
-  float* delta;      // (B, H, Sq), written by flash_bwd_delta
+  float* delta;      // (B, H, sq_pad), written by flash_bwd_delta
+  float* lse2;       // bf16: (B, H, sq_pad) lse * log2(e), written by flash_bwd_delta; fp32: null
+  float* part;       // (head_split, B, Skv, K, dqk + dv) fp32 dK | dV parts when head_split > 1
   void* dq;          // contiguous (B, Sq, H, dqk)
   void* dk;          // contiguous (B, Skv, K, dqk)
   void* dv;          // contiguous (B, Skv, K, dv)
@@ -82,7 +131,9 @@ struct BwdArgs {
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;  // element strides
   float scale;
   int causal;
-  int64_t window;  // 0: none; clamped to Sq + Skv by the launcher
+  int64_t window;   // 0: none; clamped to Sq + Skv by the launcher
+  int64_t sq_pad;   // row pitch of delta and lse2: Sq (fp32), Sq rounded up to kBM (bf16)
+  int head_split;   // blocks a kv head's query heads are split over (bf16)
 };
 
 __device__ __forceinline__ bool visible(const BwdArgs& a, int64_t qpos, int64_t kpos) {
@@ -116,22 +167,30 @@ __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 // ------------------------------------------------------------- delta pass --
 // delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] in fp32: one warp a
-// row of o's (B, Sq, H) rows, 8 rows a block.
+// row, 8 rows a block, rows in (b, h, i) order at pitch sq_pad. With lse2
+// also lse * log2(e) there (+inf for a row that sees no key); the padding
+// rows i in [Sq, sq_pad) get delta 0 and lse2 +inf.
 template <typename T, int DV>
 __global__ void __launch_bounds__(256) flash_bwd_delta(BwdArgs a) {
   const int64_t row = int64_t(blockIdx.x) * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
-  if (row >= a.B * a.Sq * a.H) return;
-  const T* op = static_cast<const T*>(a.o) + row * DV;
-  const T* dp = static_cast<const T*>(a.dout) + row * DV;
+  if (row >= a.B * a.H * a.sq_pad) return;
+  const int64_t qpos = row % a.sq_pad, bh = row / a.sq_pad, h = bh % a.H, b = bh / a.H;
   float s = 0.f;
+  if (qpos < a.Sq) {
+    const T* op = static_cast<const T*>(a.o) + ((b * a.Sq + qpos) * a.H + h) * DV;
+    const T* dp = static_cast<const T*>(a.dout) + ((b * a.Sq + qpos) * a.H + h) * DV;
 #pragma unroll
-  for (int i = lane; i < DV; i += 32) s = fmaf(to_f(op[i]), to_f(dp[i]), s);
+    for (int i = lane; i < DV; i += 32) s = fmaf(to_f(op[i]), to_f(dp[i]), s);
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(kFull, s, m);
+    for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(kFull, s, m);
+  }
   if (lane == 0) {
-    const int64_t h = row % a.H, bq = row / a.H, qpos = bq % a.Sq, b = bq / a.Sq;
-    a.delta[(b * a.H + h) * a.Sq + qpos] = s;
+    a.delta[row] = s;
+    if (a.lse2 != nullptr) {
+      const float l = qpos < a.Sq ? a.lse[bh * a.Sq + qpos] : -INFINITY;
+      a.lse2[row] = l == -INFINITY ? INFINITY : l * kLog2e;
+    }
   }
 }
 
@@ -296,321 +355,523 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_simt(BwdArgs a) {
   }
 }
 
-// ------------------------------------------------------ bf16: mma.sync --
-// kBN keys a dK / dV block (4 warps x 16 rows) against kBM queries a step;
-// kBMq queries a dQ block (4 warps x 16 rows) against kBNq keys a step.
-// At hd >= 128 a step is half as wide, and at hd 256 a dK / dV block owns
-// half of the head dims (kSplit), so that the fp32 accumulators (per
-// thread: the 16-row slice's dK and dV over 32 lanes, the scores and dP)
-// stay in registers. Shared rows are padded by 8 elements (16 bytes).
+// ------------------------------------ bf16: wgmma + TMA, warp-specialized --
+constexpr int kBwdThreads = 256;  // two consumer warpgroups; thread 0 also issues the loads
+constexpr int kBM = 64;           // query rows a ring stage of the dK / dV kernel; the lse2 / delta padding
+constexpr int kBMq = 128;         // query rows a block of the dQ kernel, 64 a consumer
+
+// Shared-memory geometry at head dims (DQK, DV). Tiles are stored as the
+// forward stores them (Tiling in flash_attn.cu): panels of R rows x kSW
+// bytes, 64 elements wide with the 128-byte swizzle where the head dim is
+// a multiple of 64, else 32 wide with the 64-byte swizzle (hd 32, and
+// MLA's qk head dim 96 in three panels). Q, K and their gradients take
+// dqk's panels, V, dO and dV dv's. Every tile is a multiple of 1024 bytes,
+// so each starts on a swizzle period.
 template <int DQK, int DV>
-struct MmaB {
-  static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims are whole k-steps");
-  static constexpr int kBN = 64;
-  static constexpr int kBM = DQK >= 128 ? 32 : 64;
-  static constexpr int kSplit = DQK > 128 ? 2 : 1;
-  static constexpr int kBMq = 64;
-  static constexpr int kBNq = DQK > 128 ? 32 : 64;
-  static constexpr int kLdQ = DQK + 8, kLdV = DV + 8;
-  static constexpr int kSmemDkdv = (kBN + kBM) * (kLdQ + kLdV) * 2 + 2 * kBM * 4;
-  static constexpr int kSmemDq = (kBMq + kBNq) * (kLdQ + kLdV) * 2;
+struct BwdTiling {
+  static_assert(DQK % 32 == 0 && DV % 32 == 0, "head dims are whole 32-element panels");
+  static constexpr int kPW = DQK % 64 ? 32 : 64;   // Q, K: elements per panel row
+  static constexpr int kSW = kPW * 2;              // bytes per panel row = the swizzle span
+  static constexpr int kPWv = DV % 64 ? 32 : 64;   // V, dO: the same, across the v head dim
+  static constexpr int kSWv = kPWv * 2;
+  // dK / dV kernel: kKB keys a block; at hd 256 both consumers own the same
+  // 64 keys and each a half of the head dims (kNQ of dK's, kNV of dV's).
+  static constexpr bool kSplitCols = DQK > 128;
+  static constexpr int kKB = kSplitCols ? 64 : 128;
+  static constexpr int kNQ = kSplitCols ? DQK / 2 : DQK;
+  static constexpr int kNV = kSplitCols ? DV / 2 : DV;
+  static constexpr int kKBytes = kKB * DQK * 2, kVBytes = kKB * DV * 2;
+  static constexpr int kQBytes = kBM * DQK * 2, kOBytes = kBM * DV * 2;
+  static constexpr int kStageBytes = kQBytes + kOBytes;  // a ring stage: Q, then dO
+  static constexpr int kRowBytes = 2 * kBM * 4;          // a stage's lse2, then delta
+  static constexpr int kStages = kSplitCols ? 2 : 3;     // ring depth: at hd 256 two fill 194 KB
+  static constexpr int kSmemDkdv = 1024 + kKBytes + kVBytes + kStages * (kStageBytes + kRowBytes);
+  // dQ kernel: K / V tiles of kBN rows.
+  static constexpr int kBN = DQK > 128 ? 32 : 64;
+  static constexpr int kQqBytes = kBMq * DQK * 2, kOqBytes = kBMq * DV * 2;
+  static constexpr int kKtBytes = kBN * DQK * 2, kVtBytes = kBN * DV * 2;
+  static constexpr int kStageBytesQ = kKtBytes + kVtBytes;  // a ring stage: K, then V
+  static constexpr int kStagesQ = 3;                        // 225 KB at hd 256
+  static constexpr int kSmemDq = 1024 + kQqBytes + kOqBytes + kStagesQ * kStageBytesQ;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// The m16n8k16 fragments (g = lane / 4, t = lane % 4). A (16 x 16) from a
-// row-major tile, k along the row: a0 (g, 2t..2t+1), a1 (g + 8, ..), a2 (g,
-// 2t + 8..), a3 (g + 8, 2t + 8..).
-__device__ __forceinline__ void frag_a(const bf16* s, int ld, int r0, int k0, uint32_t (&a)[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bf16* p = s + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = ld_u32(p);
-  a[1] = ld_u32(p + 8 * ld);
-  a[2] = ld_u32(p + 8);
-  a[3] = ld_u32(p + 8 * ld + 8);
-}
-
-// B (16 x 8) from a tile stored n-major, k along the row (K or V for S =
-// Q K^T, dP = dO V^T; Q or dO for S^T, dP^T): b0 (k 2t..2t+1, n g), b1 (k
-// 2t + 8..).
-__device__ __forceinline__ void frag_b(const bf16* s, int ld, int n0, int k0, uint32_t (&b)[2]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = ld_u32(p);
-  b[1] = ld_u32(p + 8);
-}
-
-// B (16 x 8) from a tile stored k-major, n along the row (dO, Q, K as the
-// right operand of P^T dO, dS^T Q, dS K): two 16-bit loads a register.
-__device__ __forceinline__ void frag_b_kmajor(const bf16* s, int ld, int k0, int n0, uint32_t (&b)[2]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const unsigned short* p = reinterpret_cast<const unsigned short*>(s) + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = uint32_t(p[0]) | (uint32_t(p[ld]) << 16);
-  b[1] = uint32_t(p[8 * ld]) | (uint32_t(p[9 * ld]) << 16);
-}
-
-// Rows [row0, row0 + rows) of a bf16 matrix (row i at src + i * stride, COLS
-// contiguous elements) into shared memory at row pitch ld; rows at or past
-// n_valid read as zeros. 16-byte loads: src and stride are 16-byte aligned.
-template <int COLS>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src, int64_t stride, int64_t row0,
-                                          int rows, int64_t n_valid) {
-  constexpr int kVec = COLS / 8;
-  for (int e = threadIdx.x; e < rows * kVec; e += blockDim.x) {
-    const int r = e / kVec, c = (e % kVec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_valid) val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+// d (64 x N, fp32) = A (64 x K) B^T, A and B K-major tiles in panels of PW
+// elements, a_rows and b_rows rows a panel; a and b address the rows the
+// product starts at.
+template <int N, int K, int PW>
+__device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t a, int a_rows, uint32_t b, int b_rows) {
+  static_assert(N == 64 || N == 32, "S tiles are 64 or 32 wide");
+  constexpr int SW = 2 * PW;
+  constexpr uint64_t layout = SW == 128 ? 1 : 2;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    // 8-row groups at 8 * SW bytes (SBO); a k-step moves 32 bytes along a
+    // swizzled row, a panel at every PW elements.
+    const int panel = kk * 16 / PW, off = (kk * 16 % PW) * 2;
+    const uint64_t da = smem_desc(a + panel * a_rows * SW + off, 0, 8 * SW, layout);
+    const uint64_t db = smem_desc(b + panel * b_rows * SW + off, 0, 8 * SW, layout);
+    if constexpr (N == 64) wgmma_ss_n64(d, da, db, kk > 0);
+    else wgmma_ss_n32(d, da, db, kk > 0);
   }
 }
 
-// dK, dV of kBN keys of one (batch, kv head), columns [z kNQ, (z + 1) kNQ)
-// of dK and [z kNV, ..) of dV (z = blockIdx.z). Warp w owns keys 16w..16w +
-// 15 of the tile; its accumulator element (n, e) sits at key row g + 8 (e /
-// 2) and column 8n + 2t + e % 2 of its slice.
+// d (64 x N, fp32) += A (64 x 16, bf16 in registers) B (16 x N), B the 16
+// rows at b of an MN-major tile in panels of PW elements, `panel` bytes
+// apart (LBO), 8-row groups at 8 * 2 PW bytes (SBO). N goes in products of
+// 128 columns (two 128-byte-swizzled panels) where it can, else one panel
+// a product; a product's columns are a contiguous run of d (element e sits
+// at column 8 * (e / 4) + ...).
+template <int N, int PW>
+__device__ __forceinline__ void rs_product(float (&d)[N / 2], const uint32_t (&a)[4], uint32_t b, uint32_t panel) {
+  constexpr int SW = 2 * PW, CW = PW == 64 && N % 128 == 0 ? 128 : PW;
+  constexpr uint64_t layout = SW == 128 ? 1 : 2;
+#pragma unroll
+  for (int j = 0; j < N / CW; ++j) {
+    const uint64_t db = smem_desc(b + j * (CW / PW) * panel, panel, 8 * SW, layout);
+    auto& dj = *reinterpret_cast<float(*)[CW / 2]>(&d[j * CW / 2]);
+    if constexpr (CW == 128) wgmma_rs_n128(dj, a, db);
+    else if constexpr (CW == 64) wgmma_rs_n64(dj, a, db);
+    else wgmma_rs_n32(dj, a, db);
+  }
+}
+
+// The fp32 accumulator of a 64 x N product as the bf16 A fragments of a
+// product over those N columns: elements 8kk .. 8kk + 7 are k-step kk's.
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&x)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack_f(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+  }
+}
+
+// The loading thread's refill after walk tile m: the stage of tile r = m -
+// lag gets tile r + S (S stages) once both consumers have released it. With
+// 3 stages the lag is 1: the other consumer finished tile m - 1 long ago,
+// so the wait costs nothing and the two consumers keep their offset; with
+// 2 stages it is 0 (a lag would leave nothing loaded ahead), and the
+// thread waits for the other consumer to finish tile m.
+template <int S, class Load>
+__device__ __forceinline__ void refill(int m, int n, uint32_t empty0, Load&& load_tile) {
+  constexpr int kLag = S > 2 ? 1 : 0;
+  const int r = m - kLag;
+  if (r >= 0 && r + S < n) {
+    mbar_wait(empty0 + 8 * (r % S), (r / S) & 1);
+    load_tile(r + S, r % S);
+  }
+}
+
+// Whether a consumer with keys [k_lo, k_hi] needs the query tile [q0, q0 +
+// kBM): kSkip (nothing visible), kFullTile (everything visible, every key
+// and query in range) or kEdge (masked); tile_kind with the roles turned.
+__device__ __forceinline__ int query_tile_kind(int k_lo, int k_hi, int q0, int sq, int skv, int causal, int win) {
+  const int q_hi = min(q0 + kBM, sq) - 1;
+  if (k_lo > k_hi || q0 > q_hi || (causal && q_hi < k_lo) || (win > 0 && q0 - k_hi >= win)) return kSkip;
+  const bool full = k_lo + 64 <= skv && q0 + kBM <= sq && (!causal || q0 >= k_lo + 63) &&
+                    (win <= 0 || q0 + kBM - 1 - k_lo < win);
+  return full ? kFullTile : kEdge;
+}
+
+// The walk of a dK / dV block: its n = heads x nq tiles in order, tile m
+// the query tile qt_lo + m % nq of query head h0 + m / nq. The query tiles
+// of kBM rows are those that can see a key of [k0, k0 + kb) (the forward's
+// tile range transposed); the loading thread and both consumers walk the
+// same tiles, so the ring's stages and phases stay in step.
+struct QueryTiles {
+  int qt_lo, nq, n;
+};
+
+__device__ __forceinline__ QueryTiles query_tiles(const BwdArgs& a, int k0, int kb, int heads) {
+  const int k_last = min(k0 + kb, int(a.Skv)) - 1;
+  const int q_begin = a.causal ? k0 : 0;
+  const int q_end = a.window > 0 ? int(min(a.Sq, int64_t(k_last) + a.window)) : int(a.Sq);
+  const int qt_lo = q_begin / kBM, nq = q_end > q_begin ? (q_end + kBM - 1) / kBM - qt_lo : 0;
+  return {qt_lo, nq, heads * nq};
+}
+
+// One query tile for one dK / dV consumer: S^T, dP^T, then P^T and dS^T
+// into dV and dK. Element e of S^T (and of dK, dV) sits at key row krow +
+// 8 * ((e % 4) >> 1) and column 8 * (e / 4) + 2 * (lane % 4) + (e % 2)
+// (a query of the tile; a head dim of dK, dV). pq and pv: the first Q and
+// dO panel of the consumer's dK and dV columns. rs: the stage's lse2 and
+// delta rows.
+template <int DQK, int DV, bool kMask>
+__device__ __forceinline__ void dkdv_step(float (&dk)[BwdTiling<DQK, DV>::kNQ / 2],
+                                          float (&dv)[BwdTiling<DQK, DV>::kNV / 2], uint32_t ka, uint32_t va,
+                                          uint32_t q_st, uint32_t o_st, int pq, int pv, const float* rs, int krow,
+                                          int q0, int sq, int skv, int causal, int win, float c) {
+  using T = BwdTiling<DQK, DV>;
+  float s[kBM / 2], dp[kBM / 2];
+  wgmma_fence();
+  ss_product<kBM, DQK, T::kPW>(s, ka, T::kKB, q_st, kBM);
+  wgmma_commit();
+  ss_product<kBM, DV, T::kPWv>(dp, va, T::kKB, o_st, kBM);
+  wgmma_commit();
+  wgmma_wait_1();  // S^T is in: P^T while dP^T runs
+  fence_regs(s);
+  const int col = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int j = 0; j < kBM / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(rs + 8 * j + col);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = 4 * j + i;
+      float p = exp2f(fmaf(s[e], c, -(i & 1 ? l2.y : l2.x)));
+      if (kMask) {
+        const int kpos = krow + 8 * (i >> 1), qpos = q0 + 8 * j + col + (i & 1);
+        const bool vis = kpos < skv && qpos < sq && (!causal || kpos <= qpos) && (win <= 0 || qpos - kpos < win);
+        p = vis ? p : 0.f;
+      }
+      s[e] = p;
+    }
+  }
+  wgmma_wait();
+  fence_regs(dp);
+#pragma unroll
+  for (int j = 0; j < kBM / 8; ++j) {
+    const float2 d2 = *reinterpret_cast<const float2*>(rs + kBM + 8 * j + col);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dp[4 * j + i] = s[4 * j + i] * (dp[4 * j + i] - (i & 1 ? d2.y : d2.x));
+  }
+  uint32_t pa[kBM / 16][4], da[kBM / 16][4];
+  pack_a<kBM>(s, pa);
+  pack_a<kBM>(dp, da);
+  fence_regs(dk);
+  fence_regs(dv);
+  fence_regs(pa);
+  fence_regs(da);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBM / 16; ++kk) {
+    rs_product<T::kNV, T::kPWv>(dv, pa[kk], o_st + pv * kBM * T::kSWv + kk * 16 * T::kSWv, kBM * T::kSWv);
+    rs_product<T::kNQ, T::kPW>(dk, da[kk], q_st + pq * kBM * T::kSW + kk * 16 * T::kSW, kBM * T::kSW);
+  }
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(dk);
+  fence_regs(dv);
+  fence_regs(pa);
+  fence_regs(da);
+}
+
+// dK, dV of kKB keys of one (batch, kv head): blockIdx.x = ((b K + kvh)
+// head_split + split), blockIdx.y the key tile.
 template <int DQK, int DV>
-__global__ void __launch_bounds__(128) flash_bwd_dkdv_mma(BwdArgs a) {
-  using M = MmaB<DQK, DV>;
-  constexpr int kNQ = DQK / M::kSplit, kNV = DV / M::kSplit, kBM = M::kBM;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kBN][kLdQ]
-  bf16* Vs = Ks + M::kBN * M::kLdQ;               // [kBN][kLdV]
-  bf16* Qs = Vs + M::kBN * M::kLdV;               // [kBM][kLdQ]
-  bf16* Os = Qs + kBM * M::kLdQ;                  // dO: [kBM][kLdV]
-  float* Ls = reinterpret_cast<float*>(Os + kBM * M::kLdV);  // lse: [kBM]
-  float* Ds = Ls + kBM;                                      // delta: [kBM]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int64_t b = blockIdx.y / a.KH, kvh = blockIdx.y % a.KH, rep = a.H / a.KH;
-  const int z = blockIdx.z;
-  const int64_t k0 = int64_t(blockIdx.x) * M::kBN;
-  const int kr0 = 16 * warp;
-  const int64_t kpos_lo = k0 + kr0 + g, kpos_hi = kpos_lo + 8;  // the key rows of e < 2 and e >= 2
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                         BwdArgs a) {
+  using T = BwdTiling<DQK, DV>;
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int S = T::kStages;
+  __shared__ __align__(8) uint64_t bars[1 + 2 * S];  // K/V, full[S], empty[S]
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t smem_k = (raw + 1023) & ~1023u;
+  const uint32_t smem_v = smem_k + T::kKBytes;
+  const uint32_t smem_st = smem_v + T::kVBytes;                      // stage s: Q at + s kStageBytes, dO after it
+  const uint32_t smem_rows = smem_st + S * T::kStageBytes;  // stage s: lse2 at + s kRowBytes, delta after
+  const float* rows = reinterpret_cast<const float*>(smem_raw + (smem_rows - raw));
+  const uint32_t bar_kv = static_cast<uint32_t>(__cvta_generic_to_shared(bars));
+  auto bar_full = [&](int s) { return bar_kv + 8 * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_kv + 8 * (1 + S + s); };
 
-  load_rows<DQK>(Ks, M::kLdQ, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh, a.k_ss, k0, M::kBN, a.Skv);
-  load_rows<DV>(Vs, M::kLdV, static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.v_ss, k0, M::kBN, a.Skv);
-  float dk[kNQ / 8][4], dv[kNV / 8][4];
-#pragma unroll
-  for (int n = 0; n < kNQ / 8; ++n) dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-#pragma unroll
-  for (int n = 0; n < kNV / 8; ++n) dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+  const int rep = int(a.H / a.KH), hs = a.head_split, per = rep / hs;
+  const int split = blockIdx.x % hs, bk = blockIdx.x / hs, b = bk / int(a.KH), kvh = bk % int(a.KH);
+  const int h0 = kvh * rep + split * per;
+  const int k0 = blockIdx.y * T::kKB;
+  const QueryTiles w = query_tiles(a, k0, T::kKB, per);
+  // TMA of walk tile m (query head h0 + m / nq, query tile qt_lo + m % nq)
+  // into ring stage `stage`: Q, dO, and its lse2 and delta rows.
+  auto load_tile = [&](int m, int stage) {
+    const int h = h0 + m / w.nq, q0 = (w.qt_lo + m % w.nq) * kBM;
+    mbar_expect_tx(bar_full(stage), T::kStageBytes + T::kRowBytes);
+    const uint32_t q_dst = smem_st + stage * T::kStageBytes, o_dst = q_dst + T::kQBytes;
+    for (int p = 0; p < DQK / T::kPW; ++p) {
+      tma_load_4d(q_dst + p * kBM * T::kSW, &tq, bar_full(stage), p * T::kPW, h, q0, b);
+    }
+    for (int p = 0; p < DV / T::kPWv; ++p) {
+      tma_load_4d(o_dst + p * kBM * T::kSWv, &tdo, bar_full(stage), p * T::kPWv, h, q0, b);
+    }
+    const int64_t row = (int64_t(b) * a.H + h) * a.sq_pad + q0;
+    const uint32_t r_dst = smem_rows + stage * T::kRowBytes;
+    bulk_load(r_dst, a.lse2 + row, kBM * 4, bar_full(stage));
+    bulk_load(r_dst + kBM * 4, a.delta + row, kBM * 4, bar_full(stage));
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bar_full(s), 1);
+      mbar_init(bar_empty(s), 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // the loading thread: K and V once, the ring's first tiles
+    mbar_expect_tx(bar_kv, T::kKBytes + T::kVBytes);
+    for (int p = 0; p < DQK / T::kPW; ++p) {
+      tma_load_4d(smem_k + p * T::kKB * T::kSW, &tk, bar_kv, p * T::kPW, kvh, k0, b);
+    }
+    for (int p = 0; p < DV / T::kPWv; ++p) {
+      tma_load_4d(smem_v + p * T::kKB * T::kSWv, &tv, bar_kv, p * T::kPWv, kvh, k0, b);
+    }
+    for (int m = 0; m < S && m < w.n; ++m) load_tile(m, m);
+  }
 
-  int64_t qt_lo, qt_hi;
-  query_tile_range(a, k0, M::kBN, kBM, &qt_lo, &qt_hi);
-  for (int64_t hr = 0; hr < rep; ++hr) {
-    const int64_t h = kvh * rep + hr;
-    const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const bf16* dop = static_cast<const bf16*>(a.dout) + (b * a.Sq * a.H + h) * DV;
-    const float* lp = a.lse + (b * a.H + h) * a.Sq;
-    const float* dlp = a.delta + (b * a.H + h) * a.Sq;
-    for (int64_t qt = qt_lo; qt < qt_hi; ++qt) {
-      const int64_t q0 = qt * kBM;
-      __syncthreads();
-      load_rows<DQK>(Qs, M::kLdQ, qp, a.q_ss, q0, kBM, a.Sq);
-      load_rows<DV>(Os, M::kLdV, dop, a.H * DV, q0, kBM, a.Sq);
-      for (int i = threadIdx.x; i < kBM; i += 128) {
-        const int64_t qpos = q0 + i;
-        Ls[i] = qpos < a.Sq ? lp[qpos] : 0.f;
-        Ds[i] = qpos < a.Sq ? dlp[qpos] : 0.f;
-      }
-      __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x kBM queries a warp.
-      float s[kBM / 8][4], dp[kBM / 8][4];
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int sq = int(a.Sq), skv = int(a.Skv), causal = a.causal, win = int(a.window);
+  const float c = a.scale * kLog2e;
+  const int k_rel = T::kSplitCols ? 0 : 64 * wg;  // the consumer's first key in the tile
+  const int k_lo = k0 + k_rel, k_hi = min(k_lo + 63, skv - 1);
+  const int krow = k_lo + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);  // and krow + 8
+  const uint32_t ka = smem_k + k_rel * T::kSW, va = smem_v + k_rel * T::kSWv;
+  const int pq = T::kSplitCols ? wg * (T::kNQ / T::kPW) : 0, pv = T::kSplitCols ? wg * (T::kNV / T::kPWv) : 0;
+  float dk[T::kNQ / 2], dv[T::kNV / 2];
 #pragma unroll
-      for (int j = 0; j < kBM / 8; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-      }
+  for (int i = 0; i < T::kNQ / 2; ++i) dk[i] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < DQK / 16; ++kk) {
-        uint32_t af[4];
-        frag_a(Ks, M::kLdQ, kr0, 16 * kk, af);
-#pragma unroll
-        for (int j = 0; j < kBM / 8; ++j) {
-          uint32_t bfr[2];
-          frag_b(Qs, M::kLdQ, 8 * j, 16 * kk, bfr);
-          mma_bf16(s[j], af, bfr);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < DV / 16; ++kk) {
-        uint32_t af[4];
-        frag_a(Vs, M::kLdV, kr0, 16 * kk, af);
-#pragma unroll
-        for (int j = 0; j < kBM / 8; ++j) {
-          uint32_t bfr[2];
-          frag_b(Os, M::kLdV, 8 * j, 16 * kk, bfr);
-          mma_bf16(dp[j], af, bfr);
-        }
-      }
-      // P^T and dS^T in place of S^T and dP^T.
-#pragma unroll
-      for (int j = 0; j < kBM / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = 8 * j + 2 * t + (e & 1);
-          const float p = visible(a, q0 + qi, e < 2 ? kpos_lo : kpos_hi) ? expf(s[j][e] * a.scale - Ls[qi]) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - Ds[qi]);
-        }
-      }
-      // dV += P^T dO and dK += dS^T Q, 16 queries a k-step; n-tiles 2kk
-      // and 2kk + 1 of S^T are k-step kk's A fragment.
-#pragma unroll
-      for (int kk = 0; kk < kBM / 16; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]), pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                                pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                                pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-        for (int n = 0; n < kNV / 8; ++n) {
-          uint32_t bfr[2];
-          frag_b_kmajor(Os, M::kLdV, 16 * kk, z * kNV + 8 * n, bfr);
-          mma_bf16(dv[n], pa, bfr);
-        }
-#pragma unroll
-        for (int n = 0; n < kNQ / 8; ++n) {
-          uint32_t bfr[2];
-          frag_b_kmajor(Qs, M::kLdQ, 16 * kk, z * kNQ + 8 * n, bfr);
-          mma_bf16(dk[n], da, bfr);
-        }
-      }
+  for (int i = 0; i < T::kNV / 2; ++i) dv[i] = 0.f;
+  mbar_wait(bar_kv, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int m = 0; m < w.n; ++m) {
+    // Wait for the tile even when skipping it: the empty arrival below
+    // must not count toward the stage's previous phase.
+    mbar_wait(bar_full(stage), phase);
+    const int q0 = (w.qt_lo + m % w.nq) * kBM;
+    const uint32_t q_st = smem_st + stage * T::kStageBytes, o_st = q_st + T::kQBytes;
+    const float* rs = rows + stage * (T::kRowBytes / 4);
+    const int kind = query_tile_kind(k_lo, k_hi, q0, sq, skv, causal, win);
+    if (kind == kFullTile) {
+      dkdv_step<DQK, DV, false>(dk, dv, ka, va, q_st, o_st, pq, pv, rs, krow, q0, sq, skv, causal, win, c);
+    } else if (kind == kEdge) {
+      dkdv_step<DQK, DV, true>(dk, dv, ka, va, q_st, o_st, pq, pv, rs, krow, q0, sq, skv, causal, win, c);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty(stage));
+    if (threadIdx.x == 0) refill<S>(m, w.n, bar_empty(0), load_tile);
+    __syncwarp();
+    if (++stage == S) {
+      stage = 0;
+      phase ^= 1;
     }
   }
+  const int col = 2 * (lane & 3);
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int64_t kpos = half ? kpos_hi : kpos_lo;
-    if (kpos >= a.Skv) continue;
-    bf16* dkp = static_cast<bf16*>(a.dk) + ((b * a.Skv + kpos) * a.KH + kvh) * DQK + z * kNQ + 2 * t;
-    bf16* dvp = static_cast<bf16*>(a.dv) + ((b * a.Skv + kpos) * a.KH + kvh) * DV + z * kNV + 2 * t;
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = krow + 8 * i;
+    if (kpos >= skv) continue;
+    const int64_t row = (int64_t(b) * skv + kpos) * a.KH + kvh;
+    if (hs == 1) {
+      bf16* dkp = static_cast<bf16*>(a.dk) + row * DQK + pq * T::kPW + col;
+      bf16* dvp = static_cast<bf16*>(a.dv) + row * DV + pv * T::kPWv + col;
 #pragma unroll
-    for (int n = 0; n < kNQ / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + 8 * n) =
-          __floats2bfloat162_rn(dk[n][2 * half] * a.scale, dk[n][2 * half + 1] * a.scale);
-    }
+      for (int j = 0; j < T::kNQ / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dkp + 8 * j) =
+            __floats2bfloat162_rn(dk[4 * j + 2 * i] * a.scale, dk[4 * j + 2 * i + 1] * a.scale);
+      }
 #pragma unroll
-    for (int n = 0; n < kNV / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dvp + 8 * n) = __floats2bfloat162_rn(dv[n][2 * half], dv[n][2 * half + 1]);
+      for (int j = 0; j < T::kNV / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dvp + 8 * j) =
+            __floats2bfloat162_rn(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+      }
+    } else {
+      float* pp = a.part + (split * a.B * a.Skv * a.KH + row) * (DQK + DV);
+#pragma unroll
+      for (int j = 0; j < T::kNQ / 8; ++j) {
+        *reinterpret_cast<float2*>(pp + pq * T::kPW + col + 8 * j) =
+            make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+      }
+#pragma unroll
+      for (int j = 0; j < T::kNV / 8; ++j) {
+        *reinterpret_cast<float2*>(pp + DQK + pv * T::kPWv + col + 8 * j) =
+            make_float2(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+      }
     }
   }
 }
 
-// dQ of kBMq queries of one (batch, head). Warp w owns queries 16w..16w +
-// 15 of the tile.
+// dK and dV from a head split's fp32 parts: each element's head_split parts
+// added in split order, dK scaled, both rounded to bf16.
 template <int DQK, int DV>
-__global__ void __launch_bounds__(128) flash_bwd_dq_mma(BwdArgs a) {
-  using M = MmaB<DQK, DV>;
-  constexpr int kBMq = M::kBMq, kBNq = M::kBNq;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBMq][kLdQ]
-  bf16* Os = Qs + kBMq * M::kLdQ;                 // dO: [kBMq][kLdV]
-  bf16* Ks = Os + kBMq * M::kLdV;                 // [kBNq][kLdQ]
-  bf16* Vs = Ks + kBNq * M::kLdQ;                 // [kBNq][kLdV]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int64_t qtile = int64_t(gridDim.x) - 1 - blockIdx.x;  // heavy tiles first
-  const int64_t b = blockIdx.y / a.H, h = blockIdx.y % a.H, kvh = h / (a.H / a.KH);
-  const int64_t q0 = qtile * kBMq;
-  const int qr0 = 16 * warp;
-  const int64_t qpos_lo = q0 + qr0 + g, qpos_hi = qpos_lo + 8;  // the query rows of e < 2 and e >= 2
-  const float* lp = a.lse + (b * a.H + h) * a.Sq;
-  const float* dlp = a.delta + (b * a.H + h) * a.Sq;
-  const float lse_lo = qpos_lo < a.Sq ? lp[qpos_lo] : 0.f, lse_hi = qpos_hi < a.Sq ? lp[qpos_hi] : 0.f;
-  const float dl_lo = qpos_lo < a.Sq ? dlp[qpos_lo] : 0.f, dl_hi = qpos_hi < a.Sq ? dlp[qpos_hi] : 0.f;
-  load_rows<DQK>(Qs, M::kLdQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, kBMq, a.Sq);
-  load_rows<DV>(Os, M::kLdV, static_cast<const bf16*>(a.dout) + (b * a.Sq * a.H + h) * DV, a.H * DV, q0, kBMq,
-                a.Sq);
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  float dq[DQK / 8][4];
-#pragma unroll
-  for (int n = 0; n < DQK / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+__global__ void __launch_bounds__(256) flash_bwd_dkdv_sum(BwdArgs a) {
+  constexpr int kW = DQK + DV;
+  const int64_t rows = a.B * a.Skv * a.KH, i = int64_t(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= rows * kW) return;
+  const int64_t row = i / kW;
+  const int col = int(i % kW);
+  float s = 0.f;
+  for (int p = 0; p < a.head_split; ++p) s += a.part[(p * rows + row) * kW + col];
+  if (col < DQK) {
+    static_cast<bf16*>(a.dk)[row * DQK + col] = __float2bfloat16(s * a.scale);
+  } else {
+    static_cast<bf16*>(a.dv)[row * DV + col - DQK] = __float2bfloat16(s);
+  }
+}
 
-  int64_t kt_lo, kt_hi;
-  kv_tile_range(a, q0, kBMq, kBNq, &kt_lo, &kt_hi);
-  for (int64_t kt = kt_lo; kt < kt_hi; ++kt) {
-    const int64_t kv0 = kt * kBNq;
-    __syncthreads();
-    load_rows<DQK>(Ks, M::kLdQ, kp, a.k_ss, kv0, kBNq, a.Skv);
-    load_rows<DV>(Vs, M::kLdV, vp, a.v_ss, kv0, kBNq, a.Skv);
-    __syncthreads();
-    // S = Q K^T and dP = dO V^T: 16 queries x kBNq keys a warp.
-    float s[kBNq / 8][4], dp[kBNq / 8][4];
+// The walk of a dQ block: its n kv tiles of bn rows in order, tile m at
+// t_lo + m, those that the query rows [q0, q0 + kBMq) can see (the
+// forward's range).
+struct KvTiles {
+  int t_lo, n;
+};
+
+__device__ __forceinline__ KvTiles kv_tiles(const BwdArgs& a, int q0, int bn) {
+  const int q_last = min(q0 + kBMq, int(a.Sq)) - 1;
+  const int kv_end = a.causal ? min(int(a.Skv), q_last + 1) : int(a.Skv);
+  const int kv_begin = a.window > 0 ? int(max(int64_t(0), q0 - a.window + 1)) : 0;
+  const int t_lo = kv_begin / bn;
+  return {t_lo, kv_end > kv_begin ? (kv_end + bn - 1) / bn - t_lo : 0};
+}
+
+// One kv tile for one dQ consumer: S = Q K^T and dP = dO V^T, dS, dQ +=
+// dS K. Element e of S sits at query row qrow0 + 8 * ((e % 4) >> 1) and
+// key kv0 + 8 * (e / 4) + 2 * (lane % 4) + (e % 2); lse2 and dl are the
+// rows' lse2 and delta.
+template <int DQK, int DV, bool kMask>
+__device__ __forceinline__ void dq_step(float (&dq)[DQK / 2], uint32_t qa, uint32_t oa, uint32_t k_st, uint32_t v_st,
+                                        const float (&lse2)[2], const float (&dl)[2], int qrow0, int kv0, int skv,
+                                        int causal, int win, float c) {
+  using T = BwdTiling<DQK, DV>;
+  constexpr int BN = T::kBN;
+  float s[BN / 2], dp[BN / 2];
+  wgmma_fence();
+  ss_product<BN, DQK, T::kPW>(s, qa, kBMq, k_st, BN);
+  wgmma_commit();
+  ss_product<BN, DV, T::kPWv>(dp, oa, kBMq, v_st, BN);
+  wgmma_commit();
+  wgmma_wait_1();  // S is in: P while dP runs
+  fence_regs(s);
+  const int col = 2 * (threadIdx.x & 3);
 #pragma unroll
-    for (int j = 0; j < kBNq / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+  for (int e = 0; e < BN / 2; ++e) {
+    const int r = (e >> 1) & 1;
+    float p = exp2f(fmaf(s[e], c, -lse2[r]));
+    if (kMask) {
+      const int kpos = kv0 + 8 * (e >> 2) + col + (e & 1), qpos = qrow0 + 8 * r;
+      const bool vis = kpos < skv && (!causal || kpos <= qpos) && (win <= 0 || qpos - kpos < win);
+      p = vis ? p : 0.f;
     }
+    s[e] = p;
+  }
+  wgmma_wait();
+  fence_regs(dp);
 #pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk) {
-      uint32_t af[4];
-      frag_a(Qs, M::kLdQ, qr0, 16 * kk, af);
+  for (int e = 0; e < BN / 2; ++e) dp[e] = s[e] * (dp[e] - dl[(e >> 1) & 1]);
+  uint32_t da[BN / 16][4];
+  pack_a<BN>(dp, da);
+  fence_regs(dq);
+  fence_regs(da);
+  wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kBNq / 8; ++j) {
-        uint32_t bfr[2];
-        frag_b(Ks, M::kLdQ, 8 * j, 16 * kk, bfr);
-        mma_bf16(s[j], af, bfr);
-      }
+  for (int kk = 0; kk < BN / 16; ++kk) rs_product<DQK, T::kPW>(dq, da[kk], k_st + kk * 16 * T::kSW, BN * T::kSW);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(dq);
+  fence_regs(da);
+}
+
+// dQ of kBMq query rows of one (batch, head): blockIdx.x = b H + h,
+// blockIdx.y the query tile, heavy (late) tiles first.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo, BwdArgs a) {
+  using T = BwdTiling<DQK, DV>;
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int S = T::kStagesQ;
+  __shared__ __align__(8) uint64_t bars[1 + 2 * S];  // Q/dO, full[S], empty[S]
+  const uint32_t smem_q = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
+  const uint32_t smem_o = smem_q + T::kQqBytes;
+  const uint32_t smem_st = smem_o + T::kOqBytes;  // stage s: K at + s kStageBytesQ, V after it
+  const uint32_t bar_q = static_cast<uint32_t>(__cvta_generic_to_shared(bars));
+  auto bar_full = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_q + 8 * (1 + S + s); };
+
+  const int b = blockIdx.x / int(a.H), h = blockIdx.x % int(a.H), kvh = h / int(a.H / a.KH);
+  const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * kBMq;
+  const KvTiles w = kv_tiles(a, q0, T::kBN);
+  // TMA of kv tile t_lo + m into ring stage `stage`: K, then V.
+  auto load_tile = [&](int m, int stage) {
+    const int kv0 = (w.t_lo + m) * T::kBN;
+    mbar_expect_tx(bar_full(stage), T::kStageBytesQ);
+    const uint32_t k_dst = smem_st + stage * T::kStageBytesQ, v_dst = k_dst + T::kKtBytes;
+    for (int p = 0; p < DQK / T::kPW; ++p) {
+      tma_load_4d(k_dst + p * T::kBN * T::kSW, &tk, bar_full(stage), p * T::kPW, kvh, kv0, b);
     }
-#pragma unroll
-    for (int kk = 0; kk < DV / 16; ++kk) {
-      uint32_t af[4];
-      frag_a(Os, M::kLdV, qr0, 16 * kk, af);
-#pragma unroll
-      for (int j = 0; j < kBNq / 8; ++j) {
-        uint32_t bfr[2];
-        frag_b(Vs, M::kLdV, 8 * j, 16 * kk, bfr);
-        mma_bf16(dp[j], af, bfr);
-      }
+    for (int p = 0; p < DV / T::kPWv; ++p) {
+      tma_load_4d(v_dst + p * T::kBN * T::kSWv, &tv, bar_full(stage), p * T::kPWv, kvh, kv0, b);
     }
-    // dS in place of dP.
-#pragma unroll
-    for (int j = 0; j < kBNq / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t kpos = kv0 + 8 * j + 2 * t + (e & 1);
-        const bool lo = e < 2;
-        const float p =
-            visible(a, lo ? qpos_lo : qpos_hi, kpos) ? expf(s[j][e] * a.scale - (lo ? lse_lo : lse_hi)) : 0.f;
-        dp[j][e] = p * (dp[j][e] - (lo ? dl_lo : dl_hi));
-      }
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bar_full(s), 1);
+      mbar_init(bar_empty(s), 8);
     }
-    // dQ += dS K, 16 keys a k-step.
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // the loading thread: Q and dO once, the ring's first tiles
+    mbar_expect_tx(bar_q, T::kQqBytes + T::kOqBytes);
+    for (int p = 0; p < DQK / T::kPW; ++p) {
+      tma_load_4d(smem_q + p * kBMq * T::kSW, &tq, bar_q, p * T::kPW, h, q0, b);
+    }
+    for (int p = 0; p < DV / T::kPWv; ++p) {
+      tma_load_4d(smem_o + p * kBMq * T::kSWv, &tdo, bar_q, p * T::kPWv, h, q0, b);
+    }
+    for (int m = 0; m < S && m < w.n; ++m) load_tile(m, m);
+  }
+
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int sq = int(a.Sq), skv = int(a.Skv), causal = a.causal, win = int(a.window);
+  const float c = a.scale * kLog2e;
+  const int r_lo = q0 + 64 * wg, r_hi = min(r_lo + 63, sq - 1);
+  const int qrow0 = r_lo + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);  // and qrow0 + 8
+  float lse2[2], dl[2];
 #pragma unroll
-    for (int kk = 0; kk < kBNq / 16; ++kk) {
-      const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]), pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = qrow0 + 8 * i;
+    const int64_t row = (int64_t(b) * a.H + h) * a.sq_pad + qpos;
+    lse2[i] = qpos < sq ? a.lse2[row] : INFINITY;  // rows past Sq: P = 0
+    dl[i] = qpos < sq ? a.delta[row] : 0.f;
+  }
+  const uint32_t qa = smem_q + 64 * wg * T::kSW, oa = smem_o + 64 * wg * T::kSWv;
+  float dq[DQK / 2];
 #pragma unroll
-      for (int n = 0; n < DQK / 8; ++n) {
-        uint32_t bfr[2];
-        frag_b_kmajor(Ks, M::kLdQ, 16 * kk, 8 * n, bfr);
-        mma_bf16(dq[n], da, bfr);
-      }
+  for (int i = 0; i < DQK / 2; ++i) dq[i] = 0.f;
+  mbar_wait(bar_q, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int m = 0; m < w.n; ++m) {
+    mbar_wait(bar_full(stage), phase);
+    const int kv0 = (w.t_lo + m) * T::kBN;
+    const uint32_t k_st = smem_st + stage * T::kStageBytesQ, v_st = k_st + T::kKtBytes;
+    const int kind = tile_kind<T::kBN>(r_lo, r_hi, kv0, skv, causal, win);
+    if (kind == kFullTile) {
+      dq_step<DQK, DV, false>(dq, qa, oa, k_st, v_st, lse2, dl, qrow0, kv0, skv, causal, win, c);
+    } else if (kind == kEdge) {
+      dq_step<DQK, DV, true>(dq, qa, oa, k_st, v_st, lse2, dl, qrow0, kv0, skv, causal, win, c);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty(stage));
+    if (threadIdx.x == 0) refill<S>(m, w.n, bar_empty(0), load_tile);
+    __syncwarp();
+    if (++stage == S) {
+      stage = 0;
+      phase ^= 1;
     }
   }
+  const int col = 2 * (lane & 3);
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int64_t qpos = half ? qpos_hi : qpos_lo;
-    if (qpos >= a.Sq) continue;
-    bf16* dqp = static_cast<bf16*>(a.dq) + ((b * a.Sq + qpos) * a.H + h) * DQK + 2 * t;
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = qrow0 + 8 * i;
+    if (qpos >= sq) continue;
+    bf16* dqp = static_cast<bf16*>(a.dq) + ((int64_t(b) * sq + qpos) * a.H + h) * DQK + col;
 #pragma unroll
-    for (int n = 0; n < DQK / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dqp + 8 * n) =
-          __floats2bfloat162_rn(dq[n][2 * half] * a.scale, dq[n][2 * half + 1] * a.scale);
+    for (int j = 0; j < DQK / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dqp + 8 * j) =
+          __floats2bfloat162_rn(dq[4 * j + 2 * i] * a.scale, dq[4 * j + 2 * i + 1] * a.scale);
     }
   }
 }
@@ -627,20 +888,50 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s
 
 inline unsigned blocks(int64_t n, int64_t per) { return static_cast<unsigned>((n + per - 1) / per); }
 
+template <typename K>
+cudaError_t launch_tma(K kernel, dim3 grid, int smem, cudaStream_t s, const CUtensorMap (&maps)[4],
+                       const BwdArgs& a) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kBwdThreads, smem, s>>>(maps[0], maps[1], maps[2], maps[3], a);
+  return cudaGetLastError();
+}
+
+template <int DQK, int DV>
+cudaError_t launch_bf16(cudaStream_t s, const BwdArgs& a) {
+  using T = BwdTiling<DQK, DV>;
+  // q, k, v, dO maps with the dK / dV kernel's boxes, then the dQ kernel's.
+  CUtensorMap dkdv[4], dq[4];
+  const int64_t o_sh = DV, o_ss = a.H * DV, o_sb = a.Sq * a.H * DV;  // dO is contiguous
+  const bool ok =
+      tensor_map(&dkdv[0], a.q, DQK, a.H, a.Sq, a.B, a.q_sh, a.q_ss, a.q_sb, T::kPW, kBM) &&
+      tensor_map(&dkdv[1], a.k, DQK, a.KH, a.Skv, a.B, a.k_sh, a.k_ss, a.k_sb, T::kPW, T::kKB) &&
+      tensor_map(&dkdv[2], a.v, DV, a.KH, a.Skv, a.B, a.v_sh, a.v_ss, a.v_sb, T::kPWv, T::kKB) &&
+      tensor_map(&dkdv[3], a.dout, DV, a.H, a.Sq, a.B, o_sh, o_ss, o_sb, T::kPWv, kBM) &&
+      tensor_map(&dq[0], a.q, DQK, a.H, a.Sq, a.B, a.q_sh, a.q_ss, a.q_sb, T::kPW, kBMq) &&
+      tensor_map(&dq[1], a.k, DQK, a.KH, a.Skv, a.B, a.k_sh, a.k_ss, a.k_sb, T::kPW, T::kBN) &&
+      tensor_map(&dq[2], a.v, DV, a.KH, a.Skv, a.B, a.v_sh, a.v_ss, a.v_sb, T::kPWv, T::kBN) &&
+      tensor_map(&dq[3], a.dout, DV, a.H, a.Sq, a.B, o_sh, o_ss, o_sb, T::kPWv, kBMq);
+  if (!ok) return cudaErrorInvalidValue;
+  cudaError_t err = launch(flash_bwd_delta<bf16, DV>, dim3(blocks(a.B * a.H * a.sq_pad, 8)), 256, 0, s, a);
+  if (err != cudaSuccess) return err;
+  err = launch_tma(flash_bwd_dkdv_wgmma<DQK, DV>, dim3(unsigned(a.B * a.KH * a.head_split), blocks(a.Skv, T::kKB)),
+                   T::kSmemDkdv, s, dkdv, a);
+  if (err != cudaSuccess) return err;
+  if (a.head_split > 1) {
+    err = launch(flash_bwd_dkdv_sum<DQK, DV>, dim3(blocks(a.B * a.Skv * a.KH * (DQK + DV), 256)), 256, 0, s, a);
+    if (err != cudaSuccess) return err;
+  }
+  return launch_tma(flash_bwd_dq_wgmma<DQK, DV>, dim3(unsigned(a.B * a.H), blocks(a.Sq, kBMq)), T::kSmemDq, s, dq,
+                    a);
+}
+
 template <int DQK, int DV>
 cudaError_t dispatch(int dtype, cudaStream_t s, const BwdArgs& a) {
+  if (dtype == 1) return launch_bf16<DQK, DV>(s, a);
   const unsigned bkh = static_cast<unsigned>(a.B * a.KH), bh = static_cast<unsigned>(a.B * a.H);
-  cudaError_t err;
-  if (dtype == 1) {
-    using M = MmaB<DQK, DV>;
-    err = launch(flash_bwd_delta<bf16, DV>, dim3(blocks(a.B * a.Sq * a.H, 8)), 256, 0, s, a);
-    if (err != cudaSuccess) return err;
-    err = launch(flash_bwd_dkdv_mma<DQK, DV>, dim3(blocks(a.Skv, M::kBN), bkh, M::kSplit), 128, M::kSmemDkdv, s, a);
-    if (err != cudaSuccess) return err;
-    return launch(flash_bwd_dq_mma<DQK, DV>, dim3(blocks(a.Sq, M::kBMq), bh), 128, M::kSmemDq, s, a);
-  }
   using G = SimtB<DQK>;
-  err = launch(flash_bwd_delta<float, DV>, dim3(blocks(a.B * a.Sq * a.H, 8)), 256, 0, s, a);
+  cudaError_t err = launch(flash_bwd_delta<float, DV>, dim3(blocks(a.B * a.H * a.sq_pad, 8)), 256, 0, s, a);
   if (err != cudaSuccess) return err;
   const size_t smem_dkdv = (size_t(G::kTile) * (DQK + DV) + 2 * G::kTile) * sizeof(float);
   err = launch(flash_bwd_dkdv_simt<DQK, DV>, dim3(blocks(a.Skv, G::kRows), bkh), 256, smem_dkdv, s, a);
@@ -654,25 +945,35 @@ cudaError_t dispatch(int dtype, cudaStream_t s, const BwdArgs& a) {
 // q (B, Sq, H, hd), k (B, Skv, K, hd), v (B, Skv, K, hd_v) on the device,
 // last dim contiguous, element strides in `strides` (host array: q's b, s,
 // h, then k's, then v's); o and dout contiguous (B, Sq, H, hd_v); lse
-// (B, H, Sq) float32 from the forward; delta (B, H, Sq) float32 scratch;
-// dq, dk, dv contiguous (B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd_v)
-// of q's dtype, every element written. dtype 0 is float32, 1 is bfloat16
-// (q, k, v, o, dout and the bf16 tiles 16-byte aligned, every stride a
-// multiple of 8 elements). (hd, hd_v) is (32, 32), (64, 64), (128, 128),
-// (256, 256) or (96, 64). Launches three kernels on `stream`; returns
-// cudaGetLastError() as an int (cudaErrorInvalidValue, 1, for an
-// unsupported dtype or pair of head dims).
+// (B, H, Sq) float32 from the forward; dq, dk, dv contiguous (B, Sq, H,
+// hd), (B, Skv, K, hd), (B, Skv, K, hd_v) of q's dtype, every element
+// written. dtype 0 is float32, 1 is bfloat16; (hd, hd_v) is (32, 32), (64,
+// 64), (128, 128), (256, 256) or (96, 64). Scratch, float32: aux holds
+// delta (B, H, sq_pad) and, for bfloat16, lse2 (B, H, sq_pad) after it;
+// sq_pad is Sq for float32 and Sq rounded up to a multiple of 64 for
+// bfloat16. bfloat16 goes through TMA: q, k, v, o, dout 16-byte aligned,
+// every stride of a dim longer than 1 a multiple of 8 elements, aux 16-byte
+// aligned; head_split (1 for float32) divides H / K, and above 1 part
+// holds (head_split, B, Skv, K, hd + hd_v) float32. Launches its kernels
+// on `stream`; returns cudaGetLastError() as an int (cudaErrorInvalidValue,
+// 1, for an unsupported dtype, pair of head dims, layout or scratch).
 extern "C" int flash_attn_bwd_launch(const void* q, const void* k, const void* v, const void* o,
-                                     const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv,
-                                     int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t KH, int64_t hd,
+                                     const void* dout, const float* lse, float* aux, float* part, void* dq, void* dk,
+                                     void* dv, int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t KH, int64_t hd,
                                      int64_t hd_v, const int64_t* strides, float scale, int causal, int64_t window,
-                                     int dtype, void* stream) {
+                                     int64_t sq_pad, int head_split, int dtype, void* stream) {
   const int64_t win = window > 0 ? (window < Sq + Skv ? window : Sq + Skv) : 0;
-  BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KH,
+  const bool bf = dtype == 1;
+  BwdArgs a{q, k, v, o, dout, lse, aux, bf ? aux + B * H * sq_pad : nullptr, part, dq, dk, dv, B, Sq, Skv, H, KH,
             strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
-            strides[6], strides[7], strides[8], scale, causal, win};
+            strides[6], strides[7], strides[8], scale, causal, win, sq_pad, head_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool scratch_ok =
+      bf ? sq_pad >= Sq && sq_pad % kBM == 0 && reinterpret_cast<uintptr_t>(aux) % 16 == 0 && head_split >= 1 &&
+               (H / KH) % head_split == 0 && (head_split == 1 || part != nullptr)
+         : sq_pad == Sq && head_split == 1;
+  if (!scratch_ok) return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 96 && hd_v == 64) return static_cast<int>(dispatch<96, 64>(dtype, s, a));
   if (hd != hd_v) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {

@@ -3,10 +3,12 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface, under ``build/repro_torch/``
 at the repository root, and loaded with ``ctypes``. A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-an unchanged one is reused. Nothing is built when this module is imported:
-``load`` builds on first use, and ``build_all`` builds every source at once
-(one ``nvcc`` process per source, all started together).
+carries a hash of its source, of each ``csrc/`` header the source
+includes (``#include "hopper.cuh"``) and of the flags, so an edited source
+or header is rebuilt and an unchanged one is reused. Nothing is built when
+this module is imported: ``load`` builds on first use, and ``build_all``
+builds every source at once (one ``nvcc`` process per source, all started
+together).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,8 +51,8 @@ SIGNATURES = {
     },
     "flash_attn_bwd": {
         "flash_attn_bwd_launch": [
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-            ctypes.POINTER(_I64), ctypes.c_float, ctypes.c_int, _I64, ctypes.c_int, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+            ctypes.POINTER(_I64), ctypes.c_float, ctypes.c_int, _I64, _I64, ctypes.c_int, ctypes.c_int, _P,
         ],
     },
 }
@@ -68,9 +71,15 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def _source_bytes(name: str) -> bytes:
+    """``csrc/<name>.cu`` followed by each ``csrc/`` header it includes."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = re.findall(rb'^#include "([^"]+)"', src, flags=re.M)
+    return src + b"".join((CSRC / h.decode()).read_bytes() for h in headers)
+
+
+def _lib_path(name: str) -> Path:
+    tag = hashlib.sha1(_source_bytes(name) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{tag}.so"
 
 

@@ -32,6 +32,7 @@ HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (96, 64))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 _BM_BF16 = 128  # query rows per block of the bf16 forward kernel
+_BWD_BM = 64  # query rows per ring stage of the bf16 backward; its delta and lse2 rows are padded to it
 
 
 def _check_tma(**tensors: torch.Tensor) -> None:
@@ -188,6 +189,22 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def bwd_key_tile(dqk: int) -> int:
+    """Keys per block of the bf16 backward's dK / dV kernel
+    (``BwdTiling::kKB``): 128 up to head dim 128, 64 at 256."""
+    return 128 if dqk <= 128 else 64
+
+
+def bwd_head_split(b: int, skv: int, kh: int, rep: int, dqk: int, sms: int) -> int:
+    """Over how many blocks the bf16 backward splits each kv head's ``rep``
+    query heads: the least divisor of ``rep`` that gives the dK / dV kernel
+    at least ``sms`` blocks (1 where the key tiles alone do; at most
+    ``rep``). Each block of a split writes fp32 parts that a last pass adds
+    in a fixed order."""
+    tiles = -(-skv // bwd_key_tile(dqk)) * b * kh
+    return next((d for d in range(1, rep + 1) if rep % d == 0 and tiles * d >= sms), rep)
+
+
 def flash_attention_bwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
     causal: bool = True, window: int = 0, scale: float | None = None,
@@ -198,10 +215,14 @@ def flash_attention_bwd_cuda(
     gradient ``dout``; each in its input's shape and q's dtype.
 
     A CUDA tensor launches the backward kernels (``csrc/flash_attn_bwd.cu``:
-    the delta pass, dK / dV, dQ) or raises; a CPU tensor takes
+    the delta pass, dK / dV, in bfloat16 with a head split the pass that
+    adds its parts, dQ) or raises; a CPU tensor takes
     ``ref.flash_attention_bwd_plain``. The kernels take what the forward
     takes; ``o`` and ``dout`` (which autograd may hand over strided, or in
-    bfloat16 off a 16-byte boundary) are made contiguous and aligned first.
+    bfloat16 off a 16-byte boundary) are made contiguous and aligned first,
+    and in bfloat16 are then held to TMA's rules as q, k and v are. Scratch
+    (delta and the lse in log2 units, padded rows; a head split's fp32
+    parts, ``bwd_head_split``) is allocated here.
     """
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type != "cuda":
@@ -214,9 +235,20 @@ def flash_attention_bwd_cuda(
         raise ValueError(f"need o and dout of q's dtype and float32 lse; got {o.dtype}, {dout.dtype}, {lse.dtype}")
     if not (o.device == dout.device == lse.device == q.device):
         raise ValueError("q, k, v, o, lse and dout must be on one device")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and -(-skv // bwd_key_tile(hd)) > _MAX_GRID_Y:
+        raise ValueError(f"need Skv <= {_MAX_GRID_Y * bwd_key_tile(hd)} at head dim {hd}; got {skv}")
     with record_function("flash_attention_bwd_cuda"):
         o, dout, lse = _dense(o), _dense(dout), lse.contiguous()
-        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        if bf16:
+            _check_tma(o=o, dout=dout)
+        sq_pad = -(-sq // _BWD_BM) * _BWD_BM if bf16 else sq
+        aux = torch.empty((2 if bf16 else 1, b, h, sq_pad), dtype=torch.float32, device=q.device)
+        split = 1
+        if bf16:
+            sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+            split = bwd_head_split(b, skv, kh, h // kh, hd, sms)
+        part = torch.empty((split, b, skv, kh, hd + vd), dtype=torch.float32, device=q.device) if split > 1 else None
         dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
         dk = torch.empty((b, skv, kh, hd), dtype=q.dtype, device=q.device)
         dv = torch.empty((b, skv, kh, vd), dtype=q.dtype, device=q.device)
@@ -225,8 +257,9 @@ def flash_attention_bwd_cuda(
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.flash_attn_bwd_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kh, hd, vd,
-                _strides(q, k, v), scale, int(causal), int(window), _DTYPES[q.dtype], stream,
+                aux.data_ptr(), 0 if part is None else part.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, sq, skv, h, kh, hd, vd, _strides(q, k, v), scale, int(causal), int(window), sq_pad, split,
+                _DTYPES[q.dtype], stream,
             )
         _build.check(err, "flash_attn_bwd_launch")
     flash_attention_cuda.backward_launches += 1
@@ -235,7 +268,7 @@ def flash_attention_bwd_cuda(
 
 # Launches of the forward kernel (``windowed_launches``: those with a
 # window) and of the backward kernels (one a backward call, which runs the
-# delta, dK / dV and dQ kernels).
+# delta, dK / dV, with a head split the sum of its parts, and dQ kernels).
 flash_attention_cuda.launches = 0
 flash_attention_cuda.windowed_launches = 0
 flash_attention_cuda.backward_launches = 0

@@ -748,6 +748,30 @@ def test_flash_backward_kernel_takes_strided_and_misaligned_grads(cuda):
     assert flash_attention_cuda.backward_launches == before
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,vd,sq,h,kh,window,split", [
+    (128, 128, 700, 8, 2, 0, 4), (256, 256, 700, 10, 1, 100, 10), (96, 64, 300, 4, 4, 0, 1),
+    (64, 64, 4096, 32, 8, 0, 1),
+])
+def test_flash_backward_kernel_repeats_bit_for_bit(cuda, hd, vd, sq, h, kh, window, split):
+    """The bf16 backward twice more on the same inputs gives dq, dk and dv
+    equal to the first bit for bit: every element is one thread's sum in a
+    fixed order, and where the wrapper splits a group's query heads over
+    blocks (``split``, on an H100's 132 SMs) their fp32 parts are added in
+    split order."""
+    from repro_torch.kernels.flash_attn import bwd_head_split, flash_attention_bwd_cuda
+
+    q, k, v = _qkv((1, sq, h, hd), (1, sq, kh, hd), torch.bfloat16, sq + hd, cuda, shape_v=(1, sq, kh, vd))
+    o, lse = flash_attention_cuda(q, k, v, window=window, return_lse=True)
+    dout = torch.randn(o.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(hd)).to(torch.bfloat16)
+    first = flash_attention_bwd_cuda(q, k, v, o, lse, dout, window=window)
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(flash_attention_bwd_cuda(q, k, v, o, lse, dout, window=window),
+                                                         first))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sms != 132 or bwd_head_split(1, sq, kh, h // kh, hd, sms) == split
+
+
 # Every arch of the registry, reduced, in float32; LLaVA-NeXT also under
 # remat="dots"; one case with int8 gradient compression (error feedback).
 # Then every arch with self-attention again through attn_impl="chunked":

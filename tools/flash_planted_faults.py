@@ -42,24 +42,33 @@ line per build and exits non-zero unless the sound build passes every
 comparison, each tile mutant fails the grid and every layer check, and
 each head-dim-256 mutant fails every Gemma3-12B bfloat16 check.
 
-The backward kernel (``src/repro_torch/csrc/flash_attn_bwd.cu``) gets four
-mutants of its own, each made by one text edit that acts on its bf16 and
-float32 kernels alike:
+The backward kernel (``src/repro_torch/csrc/flash_attn_bwd.cu``) gets five
+mutants of its own (``BWD_MUTANTS``). The first four edit the bf16
+kernels' walks, which treat the tile as one to skip (they still wait for it
+and release its ring stage), and the float32 kernels' loops alike:
 
 - ``bwd_dkdv_drop_last_query_tile``: a dK / dV block skips the last query
-  tile that can see its keys;
+  tile that can see its keys, of every query head;
 - ``bwd_dkdv_drop_first_tile_of_last_head``: it skips the first query tile
-  of the last query head of its group (a GQA sum missing one head's part);
+  of the last query head of its group, or in bf16 of its head split (a GQA
+  sum missing one head's part);
 - ``bwd_dq_drop_last_kv_tile`` and ``bwd_dq_drop_first_kv_tile``: a dQ
   block skips its last or its first kv tile.
+
+The fifth acts on the bf16 dK / dV kernel alone:
+
+- ``bwd_dkdv_wrong_stage``: for the last query tile of each head a
+  consumer reads Q and dO from the next ring stage (barriers and counts
+  as in the sound kernel).
 
 With the sound backward and each mutant it runs ``chip_smoke.py``'s
 phase-5 backward grid and the backward checks at each model's train shape
 (``chip_smoke.TRAIN_ATTENTION_SHAPES``: Sq = Skv = 4,096, random inputs
 from ``--seed``) in bf16 and float32, counting the elements beyond
-``chip_smoke.FLASH_BWD_RTOL``. The sound build must pass every check and
-each mutant must fail the grid and every train-shape check in both
-dtypes: that is what sets the bf16 rtol.
+``chip_smoke.FLASH_BWD_RTOL``. The sound build must pass every check; each
+mutant must fail the grid and every train-shape check in bf16, and in
+float32 too where it edits the float32 kernels: that is what sets the bf16
+rtol. Sources are built with ``-I`` on ``csrc/`` for their shared header.
 """
 
 from __future__ import annotations
@@ -98,17 +107,46 @@ TILE_MUTANTS = {
 }
 
 
-# The backward mutants: (loop header, the line each adds at the top of the
-# loop). Each header opens one loop of the float32 kernel and one of the
-# bf16 kernel.
+# The backward's edit points, each in flash_attn_bwd.cu exactly once: the
+# float32 kernels' loops, the bf16 consumers' tile kinds (walk tile m of n,
+# nq query tiles a head in dK / dV), and the dK / dV consumer's stage base.
 DKDV_LOOP = "    for (int64_t qt = qt_lo; qt < qt_hi; ++qt) {\n"
 DQ_LOOP = "  for (int64_t kt = kt_lo; kt < kt_hi; ++kt) {\n"
+DKDV_KIND = "const int kind = query_tile_kind(k_lo, k_hi, q0, sq, skv, causal, win);"
+DQ_KIND = "const int kind = tile_kind<T::kBN>(r_lo, r_hi, kv0, skv, causal, win);"
+DKDV_STAGE = "const uint32_t q_st = smem_st + stage * T::kStageBytes,"
+
+
+def _skip_when(kind: str, cond: str) -> tuple[str, str]:
+    """The edit that makes a bf16 consumer treat the tile as skipped when
+    ``cond`` holds."""
+    return kind, kind.replace("= ", f"= {cond} ? kSkip : ", 1)
+
+
+# name -> the (text, replacement) edits of the mutant.
 BWD_MUTANTS = {
-    "bwd_dkdv_drop_last_query_tile": (DKDV_LOOP, "      if (qt == qt_hi - 1) continue;\n"),
-    "bwd_dkdv_drop_first_tile_of_last_head": (DKDV_LOOP, "      if (hr == rep - 1 && qt == qt_lo) continue;\n"),
-    "bwd_dq_drop_last_kv_tile": (DQ_LOOP, "    if (kt == kt_hi - 1) continue;\n"),
-    "bwd_dq_drop_first_kv_tile": (DQ_LOOP, "    if (kt == kt_lo) continue;\n"),
+    "bwd_dkdv_drop_last_query_tile": [
+        (DKDV_LOOP, DKDV_LOOP + "      if (qt == qt_hi - 1) continue;\n"),
+        _skip_when(DKDV_KIND, "m % w.nq == w.nq - 1"),
+    ],
+    "bwd_dkdv_drop_first_tile_of_last_head": [
+        (DKDV_LOOP, DKDV_LOOP + "      if (hr == rep - 1 && qt == qt_lo) continue;\n"),
+        _skip_when(DKDV_KIND, "m == w.n - w.nq"),
+    ],
+    "bwd_dq_drop_last_kv_tile": [
+        (DQ_LOOP, DQ_LOOP + "    if (kt == kt_hi - 1) continue;\n"),
+        _skip_when(DQ_KIND, "m == w.n - 1"),
+    ],
+    "bwd_dq_drop_first_kv_tile": [
+        (DQ_LOOP, DQ_LOOP + "    if (kt == kt_lo) continue;\n"),
+        _skip_when(DQ_KIND, "m == 0"),
+    ],
+    "bwd_dkdv_wrong_stage": [
+        (DKDV_STAGE, DKDV_STAGE.replace("stage *", "(m % w.nq == w.nq - 1 ? (stage + 1) % S : stage) *")),
+    ],
 }
+# The mutants that leave the float32 kernels alone: held to the bf16 checks.
+BWD_BF16_ONLY = ("bwd_dkdv_wrong_stage",)
 
 
 def _replace_once(src: str, old: str, new: str) -> str:
@@ -117,10 +155,12 @@ def _replace_once(src: str, old: str, new: str) -> str:
 
 
 def bwd_mutant_source(src: str, name: str) -> str:
-    """The backward's source with mutant ``name``'s edit in both kernels."""
-    loop, line = BWD_MUTANTS[name]
-    assert src.count(loop) == 2, f"flash_attn_bwd.cu changed: {loop!r} is not there twice"
-    return src.replace(loop, loop + line)
+    """The backward's source with mutant ``name``'s edits, each of a text
+    that occurs exactly once."""
+    for old, new in BWD_MUTANTS[name]:
+        assert src.count(old) == 1, f"flash_attn_bwd.cu changed: {old!r} is not there once"
+        src = src.replace(old, new)
+    return src
 
 
 def mutant_source(src: str, name: str) -> str:
@@ -246,7 +286,8 @@ def main() -> int:
         for name in [*TILE_MUTANTS, *HD256_MUTANTS, *BWD_MUTANTS]:
             cu, so = Path(tmp) / f"{name}.cu", Path(tmp) / f"{name}.so"
             cu.write_text(bwd_mutant_source(bwd_src, name) if name in BWD_MUTANTS else mutant_source(src, name))
-            jobs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)]
+            jobs[name] = (so, subprocess.Popen(cmd,
                                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         sound = _build.load("flash_attn")
         sound_bwd = _build.load("flash_attn_bwd")
@@ -301,7 +342,8 @@ def main() -> int:
     verdict["bwd_sound"] = bwd_results["sound"]["grid_mismatches"] == 0 and \
         all(bwd_results["sound"][k]["mismatches"] == 0 for k in shapes)
     for name in BWD_MUTANTS:
-        verdict[name] = bwd_results[name]["grid_mismatches"] > 0 and caught(bwd_results[name], shapes)
+        held = [k for k in shapes if k.endswith("bf16")] if name in BWD_BF16_ONLY else shapes
+        verdict[name] = bwd_results[name]["grid_mismatches"] > 0 and caught(bwd_results[name], held)
     ok = all(verdict.values())
     print(json.dumps({"ok": ok, "verdict": verdict, "rtol": chip_smoke.FLASH_RTOL,
                       "bwd_rtol": chip_smoke.FLASH_BWD_RTOL,
