@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.core import DedupCluster, ReadError
 from repro_torch.core.chunking import ChunkSpec
 from repro_torch.kernels import ops as kops
@@ -100,18 +101,32 @@ def _leaf_paths(tree: Any) -> list[tuple[str, Any]]:
 
 
 def _serialize_leaf(leaf) -> bytes:
-    if isinstance(leaf, torch.Tensor):
-        t = _as_tensor(leaf).contiguous().cpu()
-        if t.dtype == torch.bfloat16:
-            arr, dtype_name = t.view(torch.uint16).numpy(), "bfloat16"
-        else:
-            arr = t.numpy()
-            dtype_name = arr.dtype.name
-    else:
-        arr = np.asarray(leaf)
-        dtype_name = arr.dtype.name
-    header = json.dumps({"dtype": dtype_name, "shape": list(arr.shape)}).encode()
-    return len(header).to_bytes(4, "big") + header + arr.tobytes()
+    """A leaf's stored bytes: a 4-byte header length, a JSON header (dtype,
+    shape) and the raw elements. Spans ``ckpt.serialize`` around
+    ``ckpt.d2h`` (the leaf onto the host) and ``ckpt.encode`` (the bytes)."""
+    with obs.span("ckpt.serialize") as attrs:
+        with obs.span("ckpt.d2h") as d2h:
+            if isinstance(leaf, torch.Tensor):
+                host = _as_tensor(leaf).contiguous().cpu()
+                d2h["bytes"], d2h["pinned"] = host.numel() * host.element_size(), host.is_pinned()
+            else:
+                host = np.asarray(leaf)
+                d2h["bytes"], d2h["pinned"] = host.nbytes, False
+        with obs.span("ckpt.encode") as enc:
+            if isinstance(host, torch.Tensor):
+                if host.dtype == torch.bfloat16:
+                    arr, dtype_name = host.view(torch.uint16).numpy(), "bfloat16"
+                else:
+                    arr = host.numpy()
+                    dtype_name = arr.dtype.name
+            else:
+                arr, dtype_name = host, host.dtype.name
+            header = json.dumps({"dtype": dtype_name, "shape": list(arr.shape)}).encode()
+            data = len(header).to_bytes(4, "big") + header + arr.tobytes()
+            enc["bytes"] = attrs["bytes"] = len(data)
+        # the host copy is freed here, inside the span, not after it
+        del host, arr
+    return data
 
 
 def _deserialize_leaf(data: bytes, device: torch.device) -> torch.Tensor:
@@ -202,42 +217,47 @@ class DedupCheckpointer:
 
     # ------------------------------------------------------------------ save
     def save(self, name: str, tree: Any) -> dict[str, Any]:
+        """Save ``tree`` as checkpoint ``name``; returns its manifest. The
+        span ``ckpt.save`` (``name``, ``leaves``, ``bytes`` sent) is the
+        root of every span the save opens."""
         leaves = _leaf_paths(tree)
-        # Batched device fingerprinting: one kernel launch pair for ALL
-        # leaves with a dtype (``_on_fast_path``), then per-leaf ref-write
-        # decisions.
-        fp_cache = self._batch_device_fps(leaves)
-        manifest = {"name": name, "leaves": []}
-        full_writes: list[tuple[str, bytes]] = []
-        for key, leaf in leaves:
-            obj_name = f"{self.cfg.prefix}/{name}/{key}"
-            if self._ref_write(key, obj_name, fp_cache.get(key)):
-                manifest["leaves"].append({"key": key, "object": obj_name, "ref": True})
-                self.stats["leaves_ref_only"] += 1
-                continue
-            data = _serialize_leaf(leaf)
-            full_writes.append((obj_name, data))
-            manifest["leaves"].append({"key": key, "object": obj_name, "ref": False})
-        mbytes = json.dumps(manifest).encode()
-        # One batched write transaction for all full leaves + the manifest.
-        # write_objects commits items in order and raises at the first
-        # failure, so the writes_ok delta counts exactly the committed leaves.
-        writer = (
-            self.session.put_many
-            if self.session is not None
-            else self.cluster.write_objects
-        )
-        ok_before = self.cluster.stats.writes_ok
-        try:
-            writer(
-                full_writes + [(f"{self.cfg.prefix}/{name}/MANIFEST", mbytes)]
+        with obs.span("ckpt.save", name=name, leaves=len(leaves)) as attrs:
+            # Batched device fingerprinting: one kernel launch pair for ALL
+            # leaves with a dtype (``_on_fast_path``), then per-leaf ref-write
+            # decisions.
+            fp_cache = self._batch_device_fps(leaves)
+            manifest = {"name": name, "leaves": []}
+            full_writes: list[tuple[str, bytes]] = []
+            for key, leaf in leaves:
+                obj_name = f"{self.cfg.prefix}/{name}/{key}"
+                if self._ref_write(key, obj_name, fp_cache.get(key)):
+                    manifest["leaves"].append({"key": key, "object": obj_name, "ref": True})
+                    self.stats["leaves_ref_only"] += 1
+                    continue
+                data = _serialize_leaf(leaf)
+                full_writes.append((obj_name, data))
+                manifest["leaves"].append({"key": key, "object": obj_name, "ref": False})
+            mbytes = json.dumps(manifest).encode()
+            # One batched write transaction for all full leaves + the manifest.
+            # write_objects commits items in order and raises at the first
+            # failure, so the writes_ok delta counts exactly the committed leaves.
+            writer = (
+                self.session.put_many
+                if self.session is not None
+                else self.cluster.write_objects
             )
-        finally:
-            committed = min(self.cluster.stats.writes_ok - ok_before, len(full_writes))
-            self.stats["leaves_written"] += committed
-            self.stats["bytes_sent"] += sum(len(d) for _, d in full_writes[:committed])
-        # drain async flag flips (the paper's consistency manager)
-        self.cluster.tick(2)
+            ok_before = self.cluster.stats.writes_ok
+            try:
+                writer(
+                    full_writes + [(f"{self.cfg.prefix}/{name}/MANIFEST", mbytes)]
+                )
+            finally:
+                committed = min(self.cluster.stats.writes_ok - ok_before, len(full_writes))
+                attrs["bytes"] = sum(len(d) for _, d in full_writes[:committed])
+                self.stats["leaves_written"] += committed
+                self.stats["bytes_sent"] += attrs["bytes"]
+            # drain async flag flips (the paper's consistency manager)
+            self.cluster.tick(2)
         return manifest
 
     def _batch_device_fps(self, leaves: list[tuple[str, Any]]) -> dict[str, bytes]:
@@ -250,18 +270,20 @@ class DedupCheckpointer:
         arr = [(k, leaf) for k, leaf in leaves if _on_fast_path(leaf)]
         if not arr:
             return {}
-        tensors = [_as_tensor(leaf).to(self.device) for _, leaf in arr]
-        before = kops.launch_snapshot()
-        try:
-            if self.spec.kind == "cdc":
-                out = self._fused_device_fps(tensors)
-            else:
-                fps = kops.fingerprint_tensor_chunks_many(tensors, self.spec.target_bytes)
-                out = [f.cpu().numpy().tobytes() for f in fps]
-        finally:
-            after = kops.launch_snapshot()
-            self.stats["cdc_launches"] += after["cdc"] - before["cdc"]
-            self.stats["fp_launches"] += after["fingerprint"] - before["fingerprint"]
+        with obs.span("ckpt.wave", streams=len(arr)) as attrs:
+            tensors = [_as_tensor(leaf).to(self.device) for _, leaf in arr]
+            attrs["bytes"] = sum(t.numel() * t.element_size() for t in tensors)
+            before = kops.launch_snapshot()
+            try:
+                if self.spec.kind == "cdc":
+                    out = self._fused_device_fps(tensors)
+                else:
+                    fps = kops.fingerprint_tensor_chunks_many(tensors, self.spec.target_bytes)
+                    out = [f.cpu().numpy().tobytes() for f in fps]
+            finally:
+                after = kops.launch_snapshot()
+                self.stats["cdc_launches"] += after["cdc"] - before["cdc"]
+                self.stats["fp_launches"] += after["fingerprint"] - before["fingerprint"]
         return {k: fp for (k, _), fp in zip(arr, out)}
 
     def _fused_device_fps(self, tensors: list[torch.Tensor]) -> list[bytes]:

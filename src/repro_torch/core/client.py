@@ -36,6 +36,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from repro_torch import obs
 from repro_torch.core.fingerprint import Fingerprint
 from repro_torch.core.messages import PresenceInvalidate
 from repro_torch.core.write_cache import PendingWrites, PresenceCache, WriteBackCache
@@ -209,36 +210,38 @@ class DedupClient:
         c = self.cluster
         if not items:
             return []
-        batched = (
-            c.batch_unicasts
-            if c.batch_unicasts is not None
-            else c.fault_injector is None
-        )
-        # A presence-enabled session routes even single objects through the
-        # wave engine so every write teaches (and can consult) the cache;
-        # cache-disabled sessions keep the legacy single-object branch.
-        coalesce = len(items) > 1 or self.presence is not None
-        if not (batched and c.coalesce_batches and coalesce):
-            # Per-object path (fault injector listening / batching off /
-            # single object): chunk lazily per object — peak dirty bytes
-            # stay O(object) — and keep every per-chunk event window.
-            out: list[Fingerprint] = []
-            for name, data in items:
-                _, _, chunks, fps = self.wcache.prepare(name, data)
-                try:
-                    out.append(c._write_prepared(name, data, chunks, fps, batched))
-                finally:
-                    self.wcache.release()
-            return out
+        nbytes = sum(len(data) for _, data in items)
+        with obs.span("cluster.put_many", objects=len(items), bytes=nbytes):
+            batched = (
+                c.batch_unicasts
+                if c.batch_unicasts is not None
+                else c.fault_injector is None
+            )
+            # A presence-enabled session routes even single objects through the
+            # wave engine so every write teaches (and can consult) the cache;
+            # cache-disabled sessions keep the legacy single-object branch.
+            coalesce = len(items) > 1 or self.presence is not None
+            if not (batched and c.coalesce_batches and coalesce):
+                # Per-object path (fault injector listening / batching off /
+                # single object): chunk lazily per object — peak dirty bytes
+                # stay O(object) — and keep every per-chunk event window.
+                out: list[Fingerprint] = []
+                for name, data in items:
+                    _, _, chunks, fps = self.wcache.prepare(name, data)
+                    try:
+                        out.append(c._write_prepared(name, data, chunks, fps, batched))
+                    finally:
+                        self.wcache.release()
+                return out
 
-        # Coalesced path: bounded waves (split at wave_bytes and at name
-        # repeats — every prev-object check in a wave must see committed
-        # OMAP state, so a batch that rewrites a name it wrote earlier in
-        # the same batch splits at the repeat).
-        out = []
-        for wave in self.wcache.waves(items):
-            out.extend(c._write_wave(wave, session=self))
-        return out
+            # Coalesced path: bounded waves (split at wave_bytes and at name
+            # repeats — every prev-object check in a wave must see committed
+            # OMAP state, so a batch that rewrites a name it wrote earlier in
+            # the same batch splits at the repeat).
+            out = []
+            for wave in self.wcache.waves(items):
+                out.extend(c._write_wave(wave, session=self))
+            return out
 
     # ------------------------------------------------------- scheduled session
     def put_wave_actor(

@@ -41,6 +41,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
+from repro_torch import obs
 from repro_torch.core.chunking import ChunkingSpec
 from repro_torch.core.dmshard import OMAPEntry
 from repro_torch.core.fingerprint import (
@@ -354,12 +355,13 @@ class DedupCluster:
     def tick(self, dt: int = 1) -> None:
         """Advance simulated time; land in-flight (duplicated/reordered)
         message copies, then drain async consistency queues."""
-        for _ in range(dt):
-            self.now += 1
-            self.transport.advance(self.now)
-            for n in self.nodes.values():
-                n.tick(self.now)
-        self._flush_presence_invalidations()
+        with obs.span("cluster.tick", dt=dt):
+            for _ in range(dt):
+                self.now += 1
+                self.transport.advance(self.now)
+                for n in self.nodes.values():
+                    n.tick(self.now)
+            self._flush_presence_invalidations()
 
     def run_gc(self) -> dict[str, list[Fingerprint]]:
         removed = {nid: n.run_gc(self.now) for nid, n in self.nodes.items()}
@@ -526,107 +528,109 @@ class DedupCluster:
         session's transport endpoint) and ``committed`` (filled at commit:
         ``(name, version)`` per committed object — the serialization
         witness the concurrent-session oracle replays)."""
-        src = getattr(session, "src", "client")
-        plans: list[dict] = []
-        # (exc, obj size, counted in writes_failed) — a planning failure is
-        # raised only after the objects planned before it have committed.
-        planning_failure: tuple[Exception, int, bool] | None = None
-        first_writer: set[Fingerprint] = set()
+        with obs.span("cluster.plan", objects=len(wave)) as attrs:
+            src = getattr(session, "src", "client")
+            plans: list[dict] = []
+            # (exc, obj size, counted in writes_failed) — a planning failure is
+            # raised only after the objects planned before it have committed.
+            planning_failure: tuple[Exception, int, bool] | None = None
+            first_writer: set[Fingerprint] = set()
 
-        for name, data, chunks, fps in wave:
-            self._txn_counter += 1
-            txn = self._txn_counter
-            self.stats.logical_bytes_written += len(data)
-            omap_nodes = self._live(self.omap_targets(name))
-            if not omap_nodes:
-                self.stats.writes_failed += 1
-                planning_failure = (
-                    WriteError(f"no live OMAP target for {name!r}"),
-                    len(data),
-                    True,
-                )
-                break
-            primary = omap_nodes[0]
-            self.transport.client_transfer(primary, len(data), src=src)
-            try:
-                self._fault("primary_selected", name=name, primary=primary, txn=txn)
-                prev = self._omap_lookup(name, src=primary, strict=True)
-            except TransactionAbort as e:
-                # The serial loop re-raises planning-phase aborts uncounted;
-                # earlier objects still commit before we propagate it.
-                planning_failure = (e, len(data), False)
-                break
-            except WriteError as e:
-                self.stats.writes_failed += 1
-                planning_failure = (e, len(data), True)
-                break
-            if prev is not None:
-                if prev.object_fp == object_fp(fps):
-                    self.stats.writes_ok += 1
-                    plans.append(
-                        {"kind": "done", "name": name, "ofp": prev.object_fp,
-                         "size": len(data)}
+            for name, data, chunks, fps in wave:
+                self._txn_counter += 1
+                txn = self._txn_counter
+                self.stats.logical_bytes_written += len(data)
+                omap_nodes = self._live(self.omap_targets(name))
+                if not omap_nodes:
+                    self.stats.writes_failed += 1
+                    planning_failure = (
+                        WriteError(f"no live OMAP target for {name!r}"),
+                        len(data),
+                        True,
                     )
-                    continue
-                # Rewriting different content replaces the old object — but
-                # the old refs (the fetched ``prev`` entry, kept on the
-                # plan) are released at *commit* time, so an earlier
-                # object's failure (which aborts this whole tail) leaves the
-                # previous version intact, exactly like the serial loop that
-                # never reached this item.
-
-            ops: list[tuple[int, Fingerprint, bytes | None, list[str], bool]] = []
-            failed_chunk: int | None = None
-            for i, (fp, chunk) in enumerate(zip(fps, chunks)):
-                live = self._live(self.chunk_targets(fp))
-                if not live:
-                    failed_chunk = i
                     break
-                # Intra-batch dedup: the first writer of a fingerprint ships
-                # bytes; every later op in the wave is ref-only (the bytes
-                # are already on the same placement targets). A presence-
-                # cache hit makes even the first writer ref-only — asserted
-                # (presence=True) rather than known, so the receiver
-                # validates and the send phase falls back on 'miss'.
-                payload = None if fp in first_writer else chunk
-                presence = False
-                if (
-                    payload is not None
-                    and session is not None
-                    and session.presence_hit(fp)
-                ):
-                    payload = None
-                    presence = True
-                first_writer.add(fp)
-                ops.append((i, fp, payload, live, presence))
-            if failed_chunk is not None:
-                self.stats.writes_failed += 1
-                cause = WriteError(f"chunk {failed_chunk} of {name!r}: no live target")
-                exc = WriteError(f"write {name!r} failed: {cause}")
-                exc.__cause__ = cause
-                planning_failure = (exc, len(data), True)
-                break
-            plans.append(
-                {
-                    "kind": "write",
-                    "name": name,
-                    "data": data,
-                    "chunks": chunks,  # kept resident for presence fallback
-                    "fps": fps,
-                    "ops": ops,
-                    "primary": primary,
-                    "txn": txn,
-                    "prev": prev,  # non-None only for replaces (done short-circuits)
-                    "acked": {i: [] for i, _, _, _, _ in ops},
-                }
-            )
-        return {
-            "plans": plans,
-            "planning_failure": planning_failure,
-            "batch_txn": self._txn_counter,
-            "src": src,
-            "committed": [],
-        }
+                primary = omap_nodes[0]
+                self.transport.client_transfer(primary, len(data), src=src)
+                try:
+                    self._fault("primary_selected", name=name, primary=primary, txn=txn)
+                    prev = self._omap_lookup(name, src=primary, strict=True)
+                except TransactionAbort as e:
+                    # The serial loop re-raises planning-phase aborts uncounted;
+                    # earlier objects still commit before we propagate it.
+                    planning_failure = (e, len(data), False)
+                    break
+                except WriteError as e:
+                    self.stats.writes_failed += 1
+                    planning_failure = (e, len(data), True)
+                    break
+                if prev is not None:
+                    if prev.object_fp == object_fp(fps):
+                        self.stats.writes_ok += 1
+                        plans.append(
+                            {"kind": "done", "name": name, "ofp": prev.object_fp,
+                             "size": len(data)}
+                        )
+                        continue
+                    # Rewriting different content replaces the old object — but
+                    # the old refs (the fetched ``prev`` entry, kept on the
+                    # plan) are released at *commit* time, so an earlier
+                    # object's failure (which aborts this whole tail) leaves the
+                    # previous version intact, exactly like the serial loop that
+                    # never reached this item.
+
+                ops: list[tuple[int, Fingerprint, bytes | None, list[str], bool]] = []
+                failed_chunk: int | None = None
+                for i, (fp, chunk) in enumerate(zip(fps, chunks)):
+                    live = self._live(self.chunk_targets(fp))
+                    if not live:
+                        failed_chunk = i
+                        break
+                    # Intra-batch dedup: the first writer of a fingerprint ships
+                    # bytes; every later op in the wave is ref-only (the bytes
+                    # are already on the same placement targets). A presence-
+                    # cache hit makes even the first writer ref-only — asserted
+                    # (presence=True) rather than known, so the receiver
+                    # validates and the send phase falls back on 'miss'.
+                    payload = None if fp in first_writer else chunk
+                    presence = False
+                    if (
+                        payload is not None
+                        and session is not None
+                        and session.presence_hit(fp)
+                    ):
+                        payload = None
+                        presence = True
+                    first_writer.add(fp)
+                    ops.append((i, fp, payload, live, presence))
+                if failed_chunk is not None:
+                    self.stats.writes_failed += 1
+                    cause = WriteError(f"chunk {failed_chunk} of {name!r}: no live target")
+                    exc = WriteError(f"write {name!r} failed: {cause}")
+                    exc.__cause__ = cause
+                    planning_failure = (exc, len(data), True)
+                    break
+                plans.append(
+                    {
+                        "kind": "write",
+                        "name": name,
+                        "data": data,
+                        "chunks": chunks,  # kept resident for presence fallback
+                        "fps": fps,
+                        "ops": ops,
+                        "primary": primary,
+                        "txn": txn,
+                        "prev": prev,  # non-None only for replaces (done short-circuits)
+                        "acked": {i: [] for i, _, _, _, _ in ops},
+                    }
+                )
+            attrs["chunk_ops"] = sum(len(p["ops"]) for p in plans if p["kind"] == "write")
+            return {
+                "plans": plans,
+                "planning_failure": planning_failure,
+                "batch_txn": self._txn_counter,
+                "src": src,
+                "committed": [],
+            }
 
     def _wave_send(self, state: dict, session=None) -> None:
         """Send phase: one ChunkOpBatch per target node for the whole wave,
@@ -650,40 +654,44 @@ class DedupCluster:
                     node_refs.setdefault(t, []).append((pi, i))
         fallback: dict[str, list[tuple[int, int]]] = {}
         for t, ops in node_ops.items():
-            elided = sum(1 for op in ops if op.presence)
-            if elided:
-                self.stats.probe_elisions += elided
-            msg = ChunkOpBatch(
-                ops=tuple(ops),
-                txn=batch_txn,
-                fp_first=self.send_fingerprint_first,
-            )
-            try:
-                outcomes = self.transport.send(src, t, msg, self.now)
-            except MessageDropped as e:
-                # Nothing acked on this node — but the ops may have applied
-                # ("ack lost"): a conditional cancel settles it receiver-side
-                # before the commit phase fails any object with an unacked
-                # chunk.
-                self._cancel_unconfirmed(
-                    src, t, e, fps=tuple(op.fp for op in ops)
+            with obs.span("cluster.send", node=t, ops=len(ops)) as attrs:
+                elided = sum(1 for op in ops if op.presence)
+                if elided:
+                    self.stats.probe_elisions += elided
+                msg = ChunkOpBatch(
+                    ops=tuple(ops),
+                    txn=batch_txn,
+                    fp_first=self.send_fingerprint_first,
                 )
-                continue
-            except (NodeDown, TransactionAbort):
-                # Aborted before delivery: nothing applied on this node; the
-                # commit phase fails (and rolls back) any object that ends
-                # up with an unacked chunk.
-                continue
-            for (pi, i), outcome in zip(node_refs[t], outcomes):
-                if outcome != "miss":
-                    plans[pi]["acked"][i].append(t)
-                    if session is not None:
-                        session.presence_note(plans[pi]["fps"][i])
-                elif session is not None:
-                    # 'miss' only happens when a presence assertion (this
-                    # op's, or the elided first-writer's earlier in the same
-                    # batch) was stale — queue a byte resend.
-                    fallback.setdefault(t, []).append((pi, i))
+                edge = self.transport.edge(src, t)
+                sent = edge.payload_bytes
+                try:
+                    outcomes = self.transport.send(src, t, msg, self.now)
+                except MessageDropped as e:
+                    # Nothing acked on this node — but the ops may have applied
+                    # ("ack lost"): a conditional cancel settles it receiver-side
+                    # before the commit phase fails any object with an unacked
+                    # chunk.
+                    self._cancel_unconfirmed(
+                        src, t, e, fps=tuple(op.fp for op in ops)
+                    )
+                    continue
+                except (NodeDown, TransactionAbort):
+                    # Aborted before delivery: nothing applied on this node; the
+                    # commit phase fails (and rolls back) any object that ends
+                    # up with an unacked chunk.
+                    continue
+                attrs["payload_bytes"] = edge.payload_bytes - sent
+                for (pi, i), outcome in zip(node_refs[t], outcomes):
+                    if outcome != "miss":
+                        plans[pi]["acked"][i].append(t)
+                        if session is not None:
+                            session.presence_note(plans[pi]["fps"][i])
+                    elif session is not None:
+                        # 'miss' only happens when a presence assertion (this
+                        # op's, or the elided first-writer's earlier in the same
+                        # batch) was stale — queue a byte resend.
+                        fallback.setdefault(t, []).append((pi, i))
 
         # ---- fallback: stale presence degrades to shipping the bytes ------
         for t, refs in fallback.items():
@@ -698,22 +706,26 @@ class DedupCluster:
                 for pi, i in refs
             )
             self.stats.presence_fallbacks += len(ops)
-            msg = ChunkOpBatch(
-                ops=ops, txn=batch_txn, fp_first=self.send_fingerprint_first
-            )
-            try:
-                outcomes = self.transport.send(src, t, msg, self.now)
-            except MessageDropped as e:
-                self._cancel_unconfirmed(
-                    src, t, e, fps=tuple(op.fp for op in ops)
+            with obs.span("cluster.send", node=t, ops=len(ops), fallback=True) as attrs:
+                msg = ChunkOpBatch(
+                    ops=ops, txn=batch_txn, fp_first=self.send_fingerprint_first
                 )
-                continue
-            except (NodeDown, TransactionAbort):
-                continue
-            for (pi, i), outcome in zip(refs, outcomes):
-                if outcome != "miss":
-                    plans[pi]["acked"][i].append(t)
-                    session.presence_note(plans[pi]["fps"][i])
+                edge = self.transport.edge(src, t)
+                sent = edge.payload_bytes
+                try:
+                    outcomes = self.transport.send(src, t, msg, self.now)
+                except MessageDropped as e:
+                    self._cancel_unconfirmed(
+                        src, t, e, fps=tuple(op.fp for op in ops)
+                    )
+                    continue
+                except (NodeDown, TransactionAbort):
+                    continue
+                attrs["payload_bytes"] = edge.payload_bytes - sent
+                for (pi, i), outcome in zip(refs, outcomes):
+                    if outcome != "miss":
+                        plans[pi]["acked"][i].append(t)
+                        session.presence_note(plans[pi]["fps"][i])
 
         # The wave is now in flight: its chunk refs exist on the owners but
         # no commit record does. Register its fingerprints so a concurrently
@@ -757,87 +769,88 @@ class DedupCluster:
         it counts in ``writes_ok`` + ``writes_superseded``, and it never
         enters ``state['committed']`` — exactly a committed write replaced
         an instant later, minus the wire traffic."""
-        self.release_inflight_wave(state["batch_txn"])
-        plans = state["plans"]
-        planning_failure = state["planning_failure"]
-        results: list[Fingerprint] = []
-        failure: Exception | None = None
-        for plan in plans:
-            if plan["kind"] == "done":
+        with obs.span("cluster.commit", objects=len(state["plans"])):
+            self.release_inflight_wave(state["batch_txn"])
+            plans = state["plans"]
+            planning_failure = state["planning_failure"]
+            results: list[Fingerprint] = []
+            failure: Exception | None = None
+            for plan in plans:
+                if plan["kind"] == "done":
+                    if failure is not None:
+                        # Serial never reached this item; undo its no-op commit.
+                        self.stats.writes_ok -= 1
+                        self.stats.logical_bytes_written -= plan["size"]
+                    else:
+                        results.append(plan["ofp"])
+                    continue
                 if failure is not None:
-                    # Serial never reached this item; undo its no-op commit.
-                    self.stats.writes_ok -= 1
-                    self.stats.logical_bytes_written -= plan["size"]
-                else:
-                    results.append(plan["ofp"])
-                continue
-            if failure is not None:
-                # An earlier object already failed: this one never commits.
-                # Undo its refs and its logical accounting (a retry of the
-                # tail will re-run it, exactly like the serial loop).
-                self._rollback_refs(plan["primary"], plan["acked"], plan["ops"])
-                self.stats.logical_bytes_written -= len(plan["data"])
-                continue
-            name, primary = plan["name"], plan["primary"]
-            try:
-                bad = next(
-                    (i for i, _, _, _, _ in plan["ops"] if not plan["acked"][i]),
-                    None,
-                )
-                if bad is not None:
-                    raise WriteError(f"chunk {bad} of {name!r}: no live target")
-                self._fault("before_omap", name=name, txn=plan["txn"])
-                if not self.nodes[primary].alive:
-                    raise NodeDown(primary)
-                ofp = object_fp(plan["fps"])
-                entry = OMAPEntry(
-                    name, ofp, list(plan["fps"]), len(plan["data"]), plan["txn"]
-                )
-                wrote, applied, prev = self._commit_omap(primary, name, entry)
-                if not wrote:
-                    raise WriteError(f"no live OMAP target for {name!r} at commit")
-            except (NodeDown, TransactionAbort, WriteError) as e:
-                self._rollback_refs(primary, plan["acked"], plan["ops"])
-                self.stats.writes_failed += 1
-                failure = WriteError(f"write {name!r} failed: {e}")
-                failure.__cause__ = e
-                continue
-            if not applied:
-                # Every replica's version gate refused the record: a
-                # concurrent session committed a newer version between our
-                # plan and commit. Superseded — roll back our refs (the
-                # winner's are the live ones) and report success.
-                self._rollback_refs(primary, plan["acked"], plan["ops"])
-                self.stats.writes_superseded += 1
+                    # An earlier object already failed: this one never commits.
+                    # Undo its refs and its logical accounting (a retry of the
+                    # tail will re-run it, exactly like the serial loop).
+                    self._rollback_refs(plan["primary"], plan["acked"], plan["ops"])
+                    self.stats.logical_bytes_written -= len(plan["data"])
+                    continue
+                name, primary = plan["name"], plan["primary"]
+                try:
+                    bad = next(
+                        (i for i, _, _, _, _ in plan["ops"] if not plan["acked"][i]),
+                        None,
+                    )
+                    if bad is not None:
+                        raise WriteError(f"chunk {bad} of {name!r}: no live target")
+                    self._fault("before_omap", name=name, txn=plan["txn"])
+                    if not self.nodes[primary].alive:
+                        raise NodeDown(primary)
+                    ofp = object_fp(plan["fps"])
+                    entry = OMAPEntry(
+                        name, ofp, list(plan["fps"]), len(plan["data"]), plan["txn"]
+                    )
+                    wrote, applied, prev = self._commit_omap(primary, name, entry)
+                    if not wrote:
+                        raise WriteError(f"no live OMAP target for {name!r} at commit")
+                except (NodeDown, TransactionAbort, WriteError) as e:
+                    self._rollback_refs(primary, plan["acked"], plan["ops"])
+                    self.stats.writes_failed += 1
+                    failure = WriteError(f"write {name!r} failed: {e}")
+                    failure.__cause__ = e
+                    continue
+                if not applied:
+                    # Every replica's version gate refused the record: a
+                    # concurrent session committed a newer version between our
+                    # plan and commit. Superseded — roll back our refs (the
+                    # winner's are the live ones) and report success.
+                    self._rollback_refs(primary, plan["acked"], plan["ops"])
+                    self.stats.writes_superseded += 1
+                    self.stats.writes_ok += 1
+                    results.append(ofp)
+                    continue
+                if prev is not None and not prev.deleted:
+                    # Release the refs of the version THIS put displaced —
+                    # response-carried, so concurrent replacers each release a
+                    # distinct version exactly once — only now that the commit
+                    # record is durably written (the OmapPut overwrote the old
+                    # entry in place — no OmapDelete needed): a failure
+                    # anywhere before this leaves the previous version fully
+                    # intact. A displaced TOMBSTONE took no refs (the delete
+                    # released them). The new ops already took their refs, so
+                    # shared chunks dip to N, not 0.
+                    self._release_entry_refs(prev, src=primary)
                 self.stats.writes_ok += 1
+                state["committed"].append((name, plan["txn"]))
                 results.append(ofp)
-                continue
-            if prev is not None and not prev.deleted:
-                # Release the refs of the version THIS put displaced —
-                # response-carried, so concurrent replacers each release a
-                # distinct version exactly once — only now that the commit
-                # record is durably written (the OmapPut overwrote the old
-                # entry in place — no OmapDelete needed): a failure
-                # anywhere before this leaves the previous version fully
-                # intact. A displaced TOMBSTONE took no refs (the delete
-                # released them). The new ops already took their refs, so
-                # shared chunks dip to N, not 0.
-                self._release_entry_refs(prev, src=primary)
-            self.stats.writes_ok += 1
-            state["committed"].append((name, plan["txn"]))
-            results.append(ofp)
 
-        if failure is not None:
+            if failure is not None:
+                if planning_failure is not None:
+                    # Serial would have stopped at the commit failure, never
+                    # reaching the planning-failed item: undo its accounting.
+                    if planning_failure[2]:
+                        self.stats.writes_failed -= 1
+                    self.stats.logical_bytes_written -= planning_failure[1]
+                raise failure
             if planning_failure is not None:
-                # Serial would have stopped at the commit failure, never
-                # reaching the planning-failed item: undo its accounting.
-                if planning_failure[2]:
-                    self.stats.writes_failed -= 1
-                self.stats.logical_bytes_written -= planning_failure[1]
-            raise failure
-        if planning_failure is not None:
-            raise planning_failure[0]
-        return results
+                raise planning_failure[0]
+            return results
 
     def _commit_omap(
         self, src: str, name: str, entry: OMAPEntry

@@ -40,6 +40,7 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Callable, Iterable, Iterator
 
+from repro_torch import obs
 from repro_torch.core.chunking import ChunkingSpec, chunk_object
 from repro_torch.core.fingerprint import Fingerprint, fingerprint_many
 
@@ -162,24 +163,30 @@ class WriteBackCache:
 
     def prepare(self, name: str, data: bytes) -> tuple:
         """Chunk + fingerprint one object into the dirty set."""
-        chunks = chunk_object(data, self.chunking)
-        self._note_dirty(sum(len(c) for c in chunks))
-        fps = fingerprint_many(chunks)
+        with obs.span("cluster.chunk", objects=1, bytes=len(data)) as attrs:
+            chunks = chunk_object(data, self.chunking)
+            attrs["chunks"] = len(chunks)
+            self._note_dirty(sum(len(c) for c in chunks))
+        with obs.span("cluster.sha256", chunks=len(chunks), bytes=len(data)):
+            fps = fingerprint_many(chunks)
         return (name, data, chunks, fps)
 
     def _prepare_wave(self, wave: list[tuple[str, bytes]]) -> list[tuple]:
         """Chunk every object of one wave, then fingerprint the wave's
         chunks in ONE vectorized pass (the legacy whole-batch shape, at
         wave granularity)."""
-        prepped = [
-            (name, data, chunk_object(data, self.chunking))
-            for name, data in wave
-        ]
-        for _, _, chunks in prepped:
-            self._note_dirty(sum(len(c) for c in chunks))
-        all_fps = fingerprint_many(
-            [c for _, _, chunks in prepped for c in chunks]
-        )
+        nbytes = sum(len(data) for _, data in wave)
+        with obs.span("cluster.chunk", objects=len(wave), bytes=nbytes) as attrs:
+            prepped = [
+                (name, data, chunk_object(data, self.chunking))
+                for name, data in wave
+            ]
+            for _, _, chunks in prepped:
+                self._note_dirty(sum(len(c) for c in chunks))
+            flat = [c for _, _, chunks in prepped for c in chunks]
+            attrs["chunks"] = len(flat)
+        with obs.span("cluster.sha256", chunks=len(flat), bytes=nbytes):
+            all_fps = fingerprint_many(flat)
         out: list[tuple] = []
         off = 0
         for name, data, chunks in prepped:

@@ -23,8 +23,8 @@ import ctypes
 import math
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch import obs
 from repro_torch.kernels import _build, ref
 
 # The (qk, v) head-dim pairs the kernels are built for; any other raises.
@@ -103,7 +103,7 @@ def _strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 def _forward(q, k, v, causal: bool, window: int, scale: float, want_lse: bool):
     """Launch the forward kernel on CUDA tensors: (out, lse or None)."""
     b, sq, h, hd, skv, kh, vd = _check_qkv(q, k, v)
-    with record_function("flash_attention_cuda"):
+    with obs.range("flash_attention_cuda"):
         out = torch.empty((b, sq, h, vd), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if want_lse else None
         lib = _build.load("flash_attn")
@@ -238,7 +238,7 @@ def flash_attention_bwd_cuda(
     bf16 = q.dtype == torch.bfloat16
     if bf16 and -(-skv // bwd_key_tile(hd)) > _MAX_GRID_Y:
         raise ValueError(f"need Skv <= {_MAX_GRID_Y * bwd_key_tile(hd)} at head dim {hd}; got {skv}")
-    with record_function("flash_attention_bwd_cuda"):
+    with obs.range("flash_attention_bwd_cuda"):
         o, dout, lse = _dense(o), _dense(dout), lse.contiguous()
         if bf16:
             _check_tma(o=o, dout=dout)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.fingerprint import Fingerprint, device_fp
 from repro_torch.kernels.cdc import cdc_cut_positions_cuda, cdc_hashes_cuda
 from repro_torch.kernels.cdc import max_cuts as _max_cuts
@@ -244,7 +245,8 @@ def cdc_cut_and_fingerprint_many(
     _count_launch("cdc")
     _count_launch("fingerprint")
     rows, per_stream = cut_wave_rows(nonempty, mask=mask, min_size=min_size, max_size=max_size)
-    fps = fingerprint_chunks_cuda(rows).split([c for _, _, c in per_stream])
+    with obs.range("kernels.fingerprint"):
+        fps = fingerprint_chunks_cuda(rows).split([c for _, _, c in per_stream])
     live = iter(
         (cutpos, n_cuts, _pad_rows(f, cutpos.shape[0] + 1), n_chunks)
         for (cutpos, n_cuts, n_chunks), f in zip(per_stream, fps)
@@ -263,12 +265,14 @@ def cut_wave_rows(
     and per stream (cutpos, n_cuts, n_chunks)). Only the rows that hold a
     chunk are built, each stream's written in place into one buffer for the
     wave (a full-width train state's wave is ~14 GB of rows)."""
-    cuts = cdc_cut_positions_cuda(streams, mask=mask, min_size=min_size, max_size=max_size)
+    with obs.range("kernels.cut"):
+        cuts = cdc_cut_positions_cuda(streams, mask=mask, min_size=min_size, max_size=max_size)
     counts = [n_chunks for _, _, n_chunks in cuts]
     _, width = fp_row_words(max_size)
-    rows = torch.empty((sum(counts), width), dtype=torch.int32, device=streams[0].device)
-    for s, (cutpos, _, _), out in zip(streams, cuts, rows.split(counts)):
-        _chunk_rows(s, cutpos, n=int(s.shape[0]), max_size=max_size, out=out)
+    with obs.range("kernels.rows"):
+        rows = torch.empty((sum(counts), width), dtype=torch.int32, device=streams[0].device)
+        for s, (cutpos, _, _), out in zip(streams, cuts, rows.split(counts)):
+            _chunk_rows(s, cutpos, n=int(s.shape[0]), max_size=max_size, out=out)
     return rows.view(torch.uint32), cuts
 
 

@@ -22,6 +22,7 @@ from collections.abc import Mapping
 
 import torch
 
+from repro_torch import obs
 from repro_torch.distributed.sharding import replicated_like
 
 
@@ -89,25 +90,26 @@ def adamw_update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.T
     parameter tensors, now holding ``master`` in their own dtype, the state
     dict with its tensors advanced, and ``{"grad_norm", "lr"}`` as 0-d
     fp32 tensors. Weight decay applies to every leaf, as in the reference."""
-    grads = {n: g.to(torch.float32) for n, g in grads.items()}
-    if cfg.compress_grads:
-        for n in grads:
-            grads[n], state["err"][n] = _compress(grads[n], state["err"][n])
+    with obs.range("optim.adamw_update"):
+        grads = {n: g.to(torch.float32) for n, g in grads.items()}
+        if cfg.compress_grads:
+            for n in grads:
+                grads[n], state["err"][n] = _compress(grads[n], state["err"][n])
 
-    gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()) + 1e-16)
-    clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()) + 1e-16)
+        clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
 
-    step = state["step"] + 1
-    lr = _schedule(cfg, step)
-    b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
-    b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
+        step = state["step"] + 1
+        lr = _schedule(cfg, step)
+        b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
+        b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
 
-    for n, g in grads.items():
-        g = g * clip
-        m = state["mu"][n].mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v = state["nu"][n].mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        master = state["master"][n]
-        master.sub_(lr * ((m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * master))
-        params[n].copy_(master.to(params[n].dtype))
-    state["step"] = step
+        for n, g in grads.items():
+            g = g * clip
+            m = state["mu"][n].mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v = state["nu"][n].mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+            master = state["master"][n]
+            master.sub_(lr * ((m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * master))
+            params[n].copy_(master.to(params[n].dtype))
+        state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
