@@ -62,7 +62,10 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    the cut and fingerprint kernels held against their twins on the train
    state's wave (every stream's positions and counts, every fingerprint
    row) and timed there. Each phase must leave nothing allocated on the
-   card (``torch.cuda.memory_allocated()`` back to its level);
+   card (``torch.cuda.memory_allocated()`` back to its level). Each
+   phase's traffic must launch the AdamW kernels for every optimizer leaf
+   (``check_adamw_counts``: a norm launch a leaf and one more, an apply
+   launch a leaf, each update);
 4e. the train path through the flash kernels (``chunked_train_phase``):
    4b's model, shape and batch (2 of 32 layers at full width, bf16,
    ``remat="full"``, AdamW, from ``--seed``) with ``attn_impl="chunked"``,
@@ -78,6 +81,15 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    step's; (c) the model at depth 1 in float32 on one microbatch of 1 x
    4,096 (the fp32 kernels): the loss and every gradient leaf, chunked
    against dense, within rtol = atol = 2e-4; (e) nothing left allocated;
+   its 3 chunked and 1 dense updates through the AdamW kernels as in 4b;
+4f. the AdamW kernels (``adamw_phase``, ``adamw_row``) on the leaves of
+   the benchmark's LLaVA-NeXT stage (8 of 32 layers at full width, bf16,
+   2.01 B parameters) with one train step's fp32 gradients: one
+   ``adamw_update`` through the kernels, then ``adamw_norm_cuda`` and
+   ``adamw_apply_cuda`` against the eager norm and ``_apply_plain`` on
+   clones given the same clip (mu, nu, master and the parameter bitwise,
+   the norm within 1e-6), timed beside the plain route, the byte bound
+   and ``torch._fused_adamw_`` (a yardstick only);
 5. hold the flash-attention kernel against its plain version on the card:
    the (causal, window) x (H, K) grid, (40, 8) heads at hd 128, float32 and
    bfloat16, Sq != Skv and ragged lengths, counting the elements beyond
@@ -184,7 +196,7 @@ cuDNN). Phases, each of which raises (exit code 1) on any failure:
    must read ``status: ok``.
 
 It prints ``main_path``, ``train``, ``train_family``, ``train_chunked``,
-``prefill``, ``serving``, ``family``, ``mesh_prefill``, ``mesh_save`` and ``dryrun``
+``adamw``, ``prefill``, ``serving``, ``family``, ``mesh_prefill``, ``mesh_save`` and ``dryrun``
 JSON lines, a ``phases`` line (each phase's seconds), a ``kernels`` JSON
 line, the card's name and power limit from nvidia-smi, and last ``{"ok":
 true, "device": ...}``. It exits non-zero without printing a
@@ -275,6 +287,10 @@ TRAIN_ACCUM = 2
 CHUNKED_STEPS = 3
 CHUNKED_FORWARD_LAUNCHES = 2 * TRAIN_LAYERS * TRAIN_ACCUM
 CHUNKED_BACKWARD_LAUNCHES = TRAIN_LAYERS * TRAIN_ACCUM
+# Phase 4f: the AdamW kernels on the leaves of the benchmark's LLaVA-NeXT
+# stage (8 of 32 layers: 2.01 B parameters), with a train step's gradients.
+ADAMW_LAYERS = 8
+ADAMW_REPS = 5
 PREFILL_TOKENS = 8192
 PREFILL_CACHE = 8200
 DECODE_TOKENS = 8
@@ -1216,7 +1232,8 @@ def train_phase(arch: str, published_layers: int, layers: int, seed: int, fp_ops
     ``DedupCheckpointer`` on a 4-node, 2-replica cluster with fixed 256 KiB
     chunks. ``traffic`` (``train_traffic`` or ``family_train_traffic``)
     with the counts set to 0 just before and read just after (1 cut + 1
-    fingerprint launch a save, no flash or window hash); every parameter
+    fingerprint launch a save, no flash or window hash, and
+    ``check_adamw_counts``' optimizer launches); every parameter
     finite after it; then one more step under the profiler
     (``profile_step_by_op``), the aux loss and (MoE) layer 0's drop share on
     step 2's batch, and the cut and fingerprint kernels held against their
@@ -1254,6 +1271,7 @@ def train_phase(arch: str, published_layers: int, layers: int, seed: int, fp_ops
         k.launches = 0
     for kind in ops.launch_counts:
         ops.launch_counts[kind] = 0
+    zero_adamw_counts()
     t = time.perf_counter()
     state, line = traffic(model, data, cluster, ckpt, opt, seed, torch.cuda.synchronize)
     traffic_s = time.perf_counter() - t
@@ -1262,6 +1280,7 @@ def train_phase(arch: str, published_layers: int, layers: int, seed: int, fp_ops
     _check(launches == {"cdc_cut_positions_cuda": n_saves, "fingerprint_chunks_cuda": n_saves,
                         "cdc_hashes_cuda": 0, "flash_attention_cuda": 0},
            f"{arch}: the train path's kernel launches {launches}, want {n_saves} cut and {n_saves} fingerprint")
+    optimizer_launches = check_adamw_counts(arch, len(line["steps"]), state["opt"])
     peak = torch.cuda.max_memory_allocated()
     rss = _rss_bytes()
     nonfinite = [n for n, p in state["params"].named_parameters() if not bool(torch.isfinite(p).all())]
@@ -1313,7 +1332,7 @@ def train_phase(arch: str, published_layers: int, layers: int, seed: int, fp_ops
         "step_peak_memory_bytes": step_peak,
         "peak_memory_bytes": peak, "traffic_s": traffic_s,
         "host_rss_bytes": {"before": rss_before, "current": rss[0], "peak": rss[1]},
-        "kernel_launches": launches, "kernel_wave": wave,
+        "kernel_launches": launches, "optimizer_launches": optimizer_launches, "kernel_wave": wave,
     }
     _check(math.isfinite(line["aux_loss_step2"]), f"{arch}: aux loss {line['aux_loss_step2']}")
     del state, ckpt, cluster, model, data
@@ -1433,8 +1452,9 @@ def chunked_train_phase(seed: int) -> dict:
     AdamW) through ``attn_impl="chunked"``: the flash kernels in both
     directions. ``chunked_train_traffic`` ((a): ``CHUNKED_FORWARD_LAUNCHES``
     forward and ``CHUNKED_BACKWARD_LAUNCHES`` backward launches each step,
-    exact; (b)); (d) one chunked and one dense step under the profiler by
-    operation (``step_categories``: the kernels under attention by the
+    exact; (b); the optimizer's launches over (a)'s steps and the dense
+    one, ``check_adamw_counts``); (d) one chunked and one dense step under
+    the profiler by operation (``step_categories``: the kernels under attention by the
     Function's events), the chunked steps' seconds, tokens/s and peak memory beside
     the dense step's; (c) the model at depth 1 in float32 on one microbatch
     of 1 x ``TRAIN_SEQ`` (``chunked_grad_check``: the fp32 kernels); (e)
@@ -1456,7 +1476,10 @@ def chunked_train_phase(seed: int) -> dict:
     data = train_data(cfg, model.device, seed)
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
     state = init_train_state(model, seed, opt)
+    zero_adamw_counts()
     state, line = chunked_train_traffic(model, dense, data, opt, state, torch.cuda.synchronize)
+    line["optimizer_launches"] = check_adamw_counts(
+        f"{TRAIN_ARCH} chunked", len(line["steps"]) + 1, state["opt"])
     want = {"forward": CHUNKED_FORWARD_LAUNCHES, "backward": CHUNKED_BACKWARD_LAUNCHES}
     got = [r["flash_launches"] for r in line["steps"]]
     _check(got == [want] * CHUNKED_STEPS, f"flash launches a chunked step {got}, want {want} each")
@@ -1506,6 +1529,163 @@ def chunked_train_phase(seed: int) -> dict:
     line["left_allocated_bytes"] = torch.cuda.memory_allocated() - mem_before
     line["phase_s"] = time.perf_counter() - t_phase
     return line
+
+
+def zero_adamw_counts() -> None:
+    from repro_torch.kernels.adamw import adamw_apply_cuda, adamw_norm_cuda
+
+    adamw_norm_cuda.launches = adamw_apply_cuda.launches = 0
+
+
+def check_adamw_counts(what: str, updates: int, opt_state: dict) -> dict:
+    """The AdamW kernels' launches since ``zero_adamw_counts``, which must
+    be those of ``updates`` updates of ``opt_state``'s leaves all through
+    ``csrc/adamw.cu``: a norm launch a leaf and one more, and an apply
+    launch a leaf. Returns them."""
+    from repro_torch.kernels.adamw import adamw_apply_cuda, adamw_norm_cuda
+
+    leaves = sum(1 for t in opt_state["mu"].values() if t.numel())
+    got = {"adamw_norm_cuda": adamw_norm_cuda.launches, "adamw_apply_cuda": adamw_apply_cuda.launches}
+    want = {"adamw_norm_cuda": updates * (leaves + 1), "adamw_apply_cuda": updates * leaves}
+    _check(got == want, f"{what}: the optimizer's kernel launches {got}, want {want} "
+                        f"({updates} updates of {leaves} leaves through csrc/adamw.cu)")
+    return got
+
+
+def adamw_bound_ms(params: dict, grads: dict) -> float:
+    """The bytes an AdamW step needs at the least, over the HBM rate: each
+    gradient read for the norm and again for the update, mu, nu and master
+    read and written, the parameter written (34 B a bf16 parameter with an
+    fp32 gradient)."""
+    nbytes = sum(p.numel() * (2 * grads[n].element_size() + 24 + p.element_size()) for n, p in params.items())
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def adamw_row(params: dict, grads: dict, state: dict, opt, reps: int) -> dict:
+    """The AdamW kernels on one set of leaves: ``params`` (name -> parameter
+    on the card), ``grads`` (the same names), ``state`` (``adamw_init``'s,
+    advanced in place) and ``opt`` (an ``AdamWConfig``).
+
+    1. one ``adamw_update``, which must launch the kernels for every leaf
+       (``check_adamw_counts``);
+    2. from the state it leaves, ``adamw_norm_cuda`` and
+       ``adamw_apply_cuda`` against the eager norm and ``_apply_plain`` a
+       leaf on clones, given the kernel's clip: mu, nu, master and the
+       parameter bitwise equal, gnorm within 1e-6 of the eager one;
+    3. timed warm (CUDA events, ``reps`` calls): ``ms``, the two wrappers;
+       ``plain_ms``, the eager norm and ``_apply_plain`` a leaf;
+       ``library_ms``, ``torch._fused_adamw_`` on the same fp32 master,
+       moments and gradients (a yardstick the port never calls: no norm,
+       no parameter written); ``bound_ms``, ``adamw_bound_ms``.
+
+    Returns the ``kernels`` line's row."""
+    import torch
+
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim import adamw
+
+    names = list(params)
+    params = {n: params[n].detach() for n in names}
+    gl = [grads[n] for n in names]
+    with torch.no_grad():
+        zero_adamw_counts()
+        adamw.adamw_update(params, grads, state, opt)
+        launches = check_adamw_counts("adamw_row", 1, state)
+
+        lr, b1c, b2c = adamw._step_scalars(opt, state["step"] + 1)
+        plain = {n: [params[n].clone()] + [state[k][n].clone() for k in ("mu", "nu", "master")] for n in names}
+        leaves = [(params[n], grads[n], state["mu"][n], state["nu"][n], state["master"][n]) for n in names]
+        gnorm, clip = kadamw.adamw_norm_cuda(gl, opt.grad_clip)
+        kadamw.adamw_apply_cuda(leaves, clip, lr, b1c, b2c, opt)
+        eager_norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in gl) + 1e-16)
+        for n in names:
+            p, m, v, w = plain[n]
+            adamw._apply_plain(p, grads[n].float(), m, v, w, clip, lr, b1c, b2c, opt)
+        mismatches, max_abs_err = {}, 0.0
+        for i, key in enumerate(("param", "mu", "nu", "master")):
+            mismatches[key] = 0
+            for n in names:
+                a = params[n] if key == "param" else state[key][n]
+                b = plain[n][i]
+                view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+                mismatches[key] += int((a.view(view) != b.view(view)).sum())
+                max_abs_err = max(max_abs_err, float((a.float() - b.float()).abs().max()))
+        gnorm_rel_err = abs(float(gnorm) / float(eager_norm) - 1.0)
+        _check(not any(mismatches.values()), f"AdamW kernels against the plain update, elements that differ: "
+                                             f"{mismatches}")
+        _check(gnorm_rel_err <= 1e-6, f"AdamW norm {float(gnorm)} against the eager {float(eager_norm)}")
+
+        def kernels():
+            _, c = kadamw.adamw_norm_cuda(gl, opt.grad_clip)
+            kadamw.adamw_apply_cuda(leaves, c, lr, b1c, b2c, opt)
+
+        def eager():
+            c = adamw._clip(torch.sqrt(sum(torch.sum(g * g) for g in gl) + 1e-16), opt)
+            for n in names:
+                p, m, v, w = plain[n]
+                adamw._apply_plain(p, grads[n].float(), m, v, w, c, lr, b1c, b2c, opt)
+
+        steps = [torch.ones((), dtype=torch.float32, device=gl[0].device) for _ in names]
+        f32 = [[plain[n][i] for n in names] for i in (3, 1, 2)]
+
+        def library():
+            torch._fused_adamw_(f32[0], [g.float() for g in gl], f32[1], f32[2], [], steps, lr=opt.lr,
+                                beta1=opt.b1, beta2=opt.b2, weight_decay=opt.weight_decay, eps=opt.eps,
+                                amsgrad=False, maximize=False)
+
+        ms = _timed(kernels, reps)
+        plain_ms = _timed(eager, reps)
+        library_ms = _timed(library, reps)
+    bound_ms = adamw_bound_ms(params, grads)
+    n_params = sum(p.numel() for p in params.values())
+    pdt = sorted({str(p.dtype).removeprefix("torch.") for p in params.values()})
+    gdt = sorted({str(g.dtype).removeprefix("torch.") for g in gl})
+    return {
+        "name": "adamw_cuda", "route": "cuda", "source": "src/repro_torch/csrc/adamw.cu",
+        "replaces": None, "kernels": ["adamw_sumsq", "adamw_finish", "adamw_apply"],
+        "launches": launches, "mismatches": sum(mismatches.values()), "mismatches_by_tensor": mismatches,
+        "max_abs_err": max_abs_err, "gnorm_rel_err": gnorm_rel_err, "clip": float(clip),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "of_bound": bound_ms / ms,
+        "library_ms": library_ms, "library": "torch._fused_adamw_ (fp32 master, moments and gradients)",
+        "shape": f"{len(names)} leaves, {n_params} parameters, {'/'.join(pdt)} parameters, "
+                 f"{'/'.join(gdt)} gradients",
+    }
+
+
+def adamw_phase(arch: str, layers: int, seed: int, reps: int = ADAMW_REPS) -> dict:
+    """Phase 4f: ``arch`` at full width and ``layers`` layers, bf16,
+    ``attn_impl="dense"``, ``remat="full"``, the port's init from ``seed``,
+    the AdamW config of the benchmark's train cells (the port's defaults);
+    one train step's fp32 gradients (``step_grads`` on train_4k's batch 0,
+    ``TRAIN_ACCUM`` microbatches), then ``adamw_row`` on those leaves.
+    Returns the row with the phase's seconds and what it left allocated
+    (``left_allocated_bytes``, checked by the caller)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import init_train_state
+
+    t_phase = time.perf_counter()
+    _warm_cublas()
+    _free()
+    mem_before = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, attn_impl="dense", remat="full")
+    model = build_model(cfg)
+    opt = AdamWConfig()
+    state = init_train_state(model, seed, opt)
+    batch = {k: torch.as_tensor(v, device=model.device) for k, v in train_data(cfg, model.device, seed).batch(0).items()}
+    _, grads = step_grads(model, state["params"], batch, TRAIN_ACCUM)
+    del batch
+    _free()
+    row = adamw_row(dict(state["params"].named_parameters()), grads, state["opt"], opt, reps)
+    row["model"] = f"{arch}, {layers} layers, full width, {cfg.param_dtype}, one train_4k step's gradients"
+    del state, grads, model
+    _free()
+    row["left_allocated_bytes"] = torch.cuda.memory_allocated() - mem_before
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row
 
 
 def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
@@ -3104,6 +3284,15 @@ def main() -> int:
     _check(chunked["left_allocated_bytes"] == 0, f"phase 4e left {chunked['left_allocated_bytes']} B")
     phase_done("4e train through the flash kernels, LLaVA-NeXT")
 
+    # ------------------- 4f. the AdamW kernels at the benchmark's leaf set
+    adamw_out = adamw_phase(TRAIN_ARCH, ADAMW_LAYERS, args.seed)
+    _check(adamw_out.pop("left_allocated_bytes") == 0, "phase 4f left memory allocated on the card")
+    adamw_out["launches_by_path"] = {f"{arch} train": line["optimizer_launches"] for arch, line in train_lines.items()}
+    adamw_out["launches_by_path"][f"{TRAIN_ARCH} train, chunked (4e), {CHUNKED_STEPS} chunked and 1 dense steps"] = \
+        chunked["optimizer_launches"]
+    print("adamw " + json.dumps(adamw_out))
+    phase_done("4f AdamW kernels, LLaVA-NeXT at 8 layers")
+
     # --------------------------------------- 5. flash kernel vs plain version
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -3196,7 +3385,7 @@ def main() -> int:
     print("phases " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
     flash_row.update(mismatches=check.mismatches, cases=check.cases, max_abs_err=max(check.max_abs_err.values()),
                      max_abs_err_by_dtype=check.max_abs_err, max_err_ratio=check.max_err_ratio)
-    rows_out += [flash_row, bwd_row]
+    rows_out += [flash_row, bwd_row, adamw_out]
     print(json.dumps({"kernels": rows_out}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -55,6 +55,14 @@ SIGNATURES = {
             ctypes.POINTER(_I64), ctypes.c_float, ctypes.c_int, _I64, _I64, ctypes.c_int, ctypes.c_int, _P,
         ],
     },
+    "adamw": {
+        "adamw_sumsq_launch": [_P, _I64, ctypes.c_int, ctypes.c_int, _P, _P],
+        "adamw_finish_launch": [_P, _I64, ctypes.c_float, _P, _P],
+        "adamw_apply_launch": [
+            _P, _P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float, _P,
+        ],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -13,7 +13,9 @@ While a torch profiler records, and only then, a span is also a
 ``record_function`` range of the same name, so the profiler's host
 timeline (the clock its device trace is aligned to) names the stage the
 host was in. ``range(name)`` is the range alone, with no log entry, for
-code whose host time means nothing because it only enqueues device work.
+code whose host time means nothing because it only enqueues device work;
+``op(name)`` is an operation, which the profiler links the kernels
+launched inside it to.
 With no profiler recording a span costs a few microseconds and a range
 one check.
 
@@ -67,6 +69,15 @@ def range(name: str):  # noqa: A001  (the profiler's word for it)
     """A ``record_function`` range named ``name`` while a profiler records;
     a context that does nothing otherwise."""
     return _record_function(name) if _profiling() else _NULL
+
+
+def op(name: str):
+    """A profiler operation named ``name`` while a profiler records; a
+    context that does nothing otherwise. The profiler links a device kernel
+    to the innermost operation around its launch and never to a range, so
+    a kernel launched through ``ctypes`` outside any torch operation is
+    linked to nothing unless it is launched inside one of these."""
+    return sys.modules["torch"]._C._profiler._RecordFunctionFast(name) if _profiling() else _NULL
 
 
 class SpanLog:

@@ -12,6 +12,10 @@ step holds no second copy of the optimizer state.
 Compression (``compress_grads``) quantizes each grad (plus the carried
 residual) to int8 with a per-tensor scale and keeps what the int8 value
 misses in ``err`` for the next step; the update sees the dequantized grad.
+
+On CUDA tensors the norm and the per-leaf update are hand-written kernels
+(``csrc/adamw.cu``, ``kernels/adamw.py``): one pass a leaf where the eager
+code below makes about twenty.
 """
 
 from __future__ import annotations
@@ -21,9 +25,11 @@ import math
 from collections.abc import Mapping
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import obs
 from repro_torch.distributed.sharding import replicated_like
+from repro_torch.kernels import adamw as kadamw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,33 +89,81 @@ def _compress(g: torch.Tensor, err: torch.Tensor) -> tuple[torch.Tensor, torch.T
     return deq, g - deq
 
 
+def _clip(gnorm: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
+    return torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+
+
+def _step_scalars(cfg: AdamWConfig, step: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(lr, b1c, b2c)`` at ``step``: the learning rate and the two bias
+    corrections, 0-d fp32 tensors on the step's device."""
+    b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
+    b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
+    return _schedule(cfg, step), b1c, b2c
+
+
+def _apply_plain(param: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, master: torch.Tensor,
+                 clip: torch.Tensor, lr: torch.Tensor, b1c: torch.Tensor, b2c: torch.Tensor,
+                 cfg: AdamWConfig) -> None:
+    """One leaf's update in eager fp32 passes (``g`` fp32): the plain
+    version of ``csrc/adamw.cu``'s ``adamw_apply``, and the route of leaves
+    off the card."""
+    g = g * clip
+    m = mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    v = nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+    master.sub_(lr * ((m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * master))
+    param.copy_(master.to(param.dtype))
+
+
+def _on_kernels(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor]) -> bool:
+    """Which route the update takes: True (the kernels) when every parameter
+    and gradient is a plain CUDA tensor, False (the eager passes) when none
+    is on the card (CPU leaves, and the dry run's meta DTensors). Raises for
+    DTensor leaves on the card, whose norm needs a sum across ranks that the
+    kernels do not take yet, and for leaves split between the card and
+    elsewhere: neither is sent to the eager passes."""
+    tensors = (*params.values(), *grads.values())
+    if not any(t.is_cuda for t in tensors):
+        return False
+    odd = sorted({f"{type(t).__name__} on {t.device}" for t in tensors if isinstance(t, DTensor) or not t.is_cuda})
+    if odd:
+        raise ValueError(f"the AdamW kernels take plain CUDA tensors only; this step also has {odd}")
+    return True
+
+
 @torch.no_grad()
 def adamw_update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
                  state: dict, cfg: AdamWConfig) -> tuple[Mapping[str, torch.Tensor], dict, dict]:
     """One AdamW step. Returns ``(params, state, metrics)``: the same
     parameter tensors, now holding ``master`` in their own dtype, the state
     dict with its tensors advanced, and ``{"grad_norm", "lr"}`` as 0-d
-    fp32 tensors. Weight decay applies to every leaf, as in the reference."""
+    fp32 tensors. Weight decay applies to every leaf, as in the reference.
+
+    CUDA leaves take the kernels of ``csrc/adamw.cu`` (the norm, then one
+    pass a leaf over gradient, moments, master and parameter, reading the
+    gradient in its own dtype); leaves off the card the eager passes of
+    ``_apply_plain``. Given the same clip factor the two agree bitwise.
+    DTensor leaves on the card raise (``_on_kernels``)."""
     with obs.range("optim.adamw_update"):
-        grads = {n: g.to(torch.float32) for n, g in grads.items()}
+        fused = _on_kernels(params, grads)
+        if cfg.compress_grads or not fused:
+            grads = {n: g.to(torch.float32) for n, g in grads.items()}
         if cfg.compress_grads:
             for n in grads:
                 grads[n], state["err"][n] = _compress(grads[n], state["err"][n])
 
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()) + 1e-16)
-        clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+        if fused:
+            gnorm, clip = kadamw.adamw_norm_cuda(list(grads.values()), cfg.grad_clip)
+        else:
+            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()) + 1e-16)
+            clip = _clip(gnorm, cfg)
 
         step = state["step"] + 1
-        lr = _schedule(cfg, step)
-        b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
-        b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
-
-        for n, g in grads.items():
-            g = g * clip
-            m = state["mu"][n].mul_(cfg.b1).add_((1 - cfg.b1) * g)
-            v = state["nu"][n].mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-            master = state["master"][n]
-            master.sub_(lr * ((m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * master))
-            params[n].copy_(master.to(params[n].dtype))
+        lr, b1c, b2c = _step_scalars(cfg, step)
+        leaves = [(params[n], g, state["mu"][n], state["nu"][n], state["master"][n]) for n, g in grads.items()]
+        if fused:
+            kadamw.adamw_apply_cuda(leaves, clip, lr, b1c, b2c, cfg)
+        else:
+            for leaf in leaves:
+                _apply_plain(*leaf, clip, lr, b1c, b2c, cfg)
         state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -198,6 +198,27 @@ def test_the_program_names_its_stages_in_a_profilers_host_events():
         assert name not in RANGES and not any(k in name for k in KERNEL_KEYS), name
 
 
+def test_an_op_is_a_profiler_operation_inside_the_range_around_it():
+    """``obs.op`` is nothing while no profiler records; under one it is an
+    operation, not a user range, below the range around it. The profiler
+    links a kernel to the innermost operation around its launch, so the
+    optimizer kernels' device time (launched through ctypes inside these)
+    falls under the update's range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ops = ("kernels.adamw_sumsq", "kernels.adamw_finish", "kernels.adamw_apply")
+    assert all(obs.op(name) is obs._NULL for name in ops)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs.range("optim.adamw_update"):
+            for name in ops:
+                with obs.op(name):
+                    pass
+    events = {e.name: e for e in prof.events()}
+    for name in ops:
+        assert not events[name].is_user_annotation and events[name].cpu_parent.name == "optim.adamw_update"
+        assert name not in RANGES and not any(k in name for k in KERNEL_KEYS), name
+
+
 # ------------------------------------------------------------ the save path --
 def test_a_save_records_its_stages_below_one_root():
     cluster = _cluster()
