@@ -32,6 +32,7 @@ import statistics
 import torch
 
 from bench import weights as W
+from bench.families import family
 from bench.reference import dedup as D
 from bench.reference import models as M
 from bench.reference import train as T
@@ -54,7 +55,7 @@ def reference_readings(config: dict, seed: int, device, steps: int) -> dict:
         batch = {k: (v.float() if v.is_floating_point() else v)
                  for k, v in W.make_batch(m, seed, step, device).items()}
         batches.append(W.microbatches(batch, m["accum"]))
-    return T.follow(params, m, config["optimizer"], batches, config["family"])
+    return T.follow(params, m, config["optimizer"], batches, family(config["family"]).loss)
 
 
 def _gap(p: float, r: float, floor: float) -> float:

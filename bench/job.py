@@ -45,11 +45,13 @@ from bench.spans import Spans
 
 # Steps set-up makes before the window, which the reference follows.
 FOLLOWED_STEPS = 3
-# The configuration file's model keys that are fields of the program's
-# ModelConfig; the file's values replace the registry's.
-PROGRAM_FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab", "rope_theta",
-                  "norm_eps", "n_frontend_tokens", "tie_embeddings", "ssm_state", "ssm_head_dim", "ssm_expand",
-                  "ssm_conv", "ssm_chunk")
+
+
+def program_sizes(m: dict, base) -> dict:
+    """The configuration's ``model`` keys that are fields of the program's
+    ``ModelConfig`` (``base``), with the file's values, which replace the
+    registry's."""
+    return {f.name: m[f.name] for f in dataclasses.fields(base) if f.name in m}
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -159,8 +161,8 @@ class Job:
         from repro_torch.train.loop import build_train_step
 
         c = self.config
-        sizes = {f: self.m[f] for f in PROGRAM_FIELDS if f in self.m}
-        self.cfg = dataclasses.replace(get_config(c["arch"]), **sizes, **c["program"],
+        base = get_config(c["arch"])
+        self.cfg = dataclasses.replace(base, **program_sizes(self.m, base), **c["program"],
                                        param_dtype=W.DTYPES[self.m["dtype"]])
         self.model = build_model(self.cfg, self.device)
         params = params_from_numpy(W.make_tree(self.m, c["family"], self.seed, self.device), self.cfg, self.device)

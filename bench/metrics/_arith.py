@@ -96,30 +96,3 @@ def attention_shapes(m: dict) -> tuple[Shape, Shape, Shape]:
     s = m["seq_len"]
     return (Shape((mb, s, m["n_heads"], m["head_dim"]), 2), Shape((mb, s, m["n_kv_heads"], m["head_dim"]), 2),
             Shape((mb, s, m["n_kv_heads"], m["head_dim"]), 2))
-
-
-def model_flop_per_step(m: dict, family: str) -> float:
-    """The model FLOPs of one step: 6 per weight of every product and
-    position it applies to (forward, and the two backward products), and
-    3 x the forward FLOPs of attention's visible pairs or of Mamba-2's
-    state-space products; recomputation under remat is not counted, nor
-    the rows that pad the vocabulary."""
-    b, s = m["global_batch"], m["seq_len"]
-    d, layers, vocab = m["d_model"], m["n_layers"], m["vocab"]
-    text = s - m.get("n_frontend_tokens", 0)
-    if family == "decoder":
-        h, kv, hd, f = m["n_heads"], m["n_kv_heads"], m["head_dim"], m["d_ff"]
-        per_layer = d * h * hd * 2 + d * kv * hd * 2 + 3 * d * f
-        products = 6 * (per_layer * layers * b * s + d * vocab * b * text)
-        attn = 3 * 2 * (2 * hd) * h * attention_pairs(s, s, True, 0) * b * layers
-        return float(products + attn)
-    d_in = m["ssm_expand"] * d
-    n, p, q = m["ssm_state"], m["ssm_head_dim"], m["ssm_chunk"]
-    heads = d_in // p
-    per_layer = d * (2 * d_in + 2 * n + heads) + d_in * d
-    products = 6 * (per_layer * layers * b * s + d * vocab * b * s)
-    chunks = s // q
-    # per chunk: C.B^T (Q x Q x N), the weighted sum over x (Q x Q x H x P),
-    # the chunk's state (Q x N x H x P) and its read-out (Q x N x H x P)
-    ssd = 2 * (q * q * n + q * q * heads * p + 2 * q * n * heads * p) * chunks * b * layers
-    return float(products + 3 * ssd)

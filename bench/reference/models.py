@@ -1,12 +1,13 @@
-"""Plain float32 references of the two model families the benchmark trains.
+"""The building blocks of the plain float32 references of the model
+families the benchmark trains; each family's loss is in its own file,
+``bench/families/<family>.py``.
 
-Written from the published descriptions, not from the program: a
-Mistral-7B decoder (LLaVA-NeXT's language backbone: RMSNorm, rotary
-position embedding, grouped-query causal attention, SwiGLU feed-forward)
-with the vision stub's patch embeddings in front of the text, and a
-Mamba-2 stack (arXiv 2405.21060: in-projection to z, x, B, C and dt, a
-depthwise causal convolution, the state-space dual form over chunks, a
-gated RMSNorm, out-projection) with tied embeddings.
+Written from the published descriptions, not from the program: RMSNorm,
+rotary position embedding, grouped-query causal attention, the
+cross-entropy over the real vocabulary, and Mamba-2's mixer (arXiv
+2405.21060: in-projection to z, x, B, C and dt, a depthwise causal
+convolution, the state-space dual form over chunks, a gated RMSNorm,
+out-projection).
 
 Parameters come as the JAX-layout tree the benchmark hands to the program
 (``bench.weights``): dense weights ``(d_in, d_out)``, block leaves stacked
@@ -14,9 +15,10 @@ on a leading layer axis. Every function here computes in float32 (call
 ``plain_float32()`` first on a GPU, so that no product runs in TF32), and
 imports nothing of the program. ``matmul`` is the one place a product
 happens, so a lower-precision control can replace it (``bench.control``).
-Each layer is recomputed in the backward pass (``torch.utils.checkpoint``),
-so that one layer's activations are held at a time: the reference runs on
-the card beside its float32 train state.
+A family's loss recomputes each layer in the backward pass
+(``torch.utils.checkpoint``), so that one layer's activations are held at
+a time: the reference runs on the card beside its float32 train state.
+Family files call products as ``models.matmul``, read at call time.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 
 def plain_float32() -> None:
@@ -88,36 +89,6 @@ def _layer(tree: dict, g: int) -> dict:
     return {k: _layer(v, g) if isinstance(v, dict) else v[g] for k, v in tree.items()}
 
 
-# ------------------------------------------------------------ Mistral ----
-def decoder_layer(p: dict, m: dict, x: torch.Tensor) -> torch.Tensor:
-    b, s, _ = x.shape
-    h, kv, hd = m["n_heads"], m["n_kv_heads"], m["head_dim"]
-    a = rms_norm(x, p["norm1"]["scale"], m["norm_eps"])
-    q = rotary(matmul(a, p["attn"]["wq"]["w"]).view(b, s, h, hd), m["rope_theta"])
-    k = rotary(matmul(a, p["attn"]["wk"]["w"]).view(b, s, kv, hd), m["rope_theta"])
-    v = matmul(a, p["attn"]["wv"]["w"]).view(b, s, kv, hd)
-    x = x + matmul(causal_attention(q, k, v).reshape(b, s, h * hd), p["attn"]["wo"]["w"])
-    a = rms_norm(x, p["norm2"]["scale"], m["norm_eps"])
-    f = p["ffn"]
-    return x + matmul(F.silu(matmul(a, f["gate"]["w"])) * matmul(a, f["up"]["w"]), f["down"]["w"])
-
-
-def decoder_loss(params: dict, m: dict, batch: dict) -> torch.Tensor:
-    """The mean next-token loss of a Mistral decoder on one microbatch:
-    ``batch`` holds ``tokens`` and ``labels`` (B, S_text) and, for the
-    vision stub, ``patch_embeds`` (B, n_front, D) placed before the text."""
-    x = params["embed"]["table"][batch["tokens"].long()]
-    n_front = 0
-    if "patch_embeds" in batch:
-        n_front = batch["patch_embeds"].shape[1]
-        x = torch.cat([batch["patch_embeds"], x], dim=1)
-    blocks = params["blocks"][0]
-    for g in range(m["n_layers"]):
-        x = checkpoint(decoder_layer, _layer(blocks, g), m, x, use_reentrant=False)
-    x = rms_norm(x[:, n_front:], params["final_norm"]["scale"], m["norm_eps"])
-    return cross_entropy(matmul(x, params["lm_head"]["w"]), batch["labels"], m["vocab"])
-
-
 # ------------------------------------------------------------ Mamba-2 ----
 def segment_sums(a: torch.Tensor) -> torch.Tensor:
     """a (..., T) -> (..., T, T): entry (i, j) is a_{j+1} + ... + a_i for
@@ -173,21 +144,3 @@ def mamba_mixer(p: dict, u: torch.Tensor, m: dict) -> torch.Tensor:
     y = y.reshape(b, s, h, hp) + p["d_skip"][:, None] * x.view(b, s, h, hp)
     y = rms_norm(y.reshape(b, s, d_in) * F.silu(z), p["norm_scale"], m["norm_eps"])
     return matmul(y, p["out_proj"]["w"])
-
-
-def mamba_layer(p: dict, m: dict, x: torch.Tensor) -> torch.Tensor:
-    return x + mamba_mixer(p["mixer"], rms_norm(x, p["norm1"]["scale"], m["norm_eps"]), m)
-
-
-def mamba_loss(params: dict, m: dict, batch: dict) -> torch.Tensor:
-    """The mean next-token loss of a Mamba-2 stack with tied embeddings."""
-    table = params["embed"]["table"]
-    x = table[batch["tokens"].long()]
-    blocks = params["blocks"][0]
-    for g in range(m["n_layers"]):
-        x = checkpoint(mamba_layer, _layer(blocks, g), m, x, use_reentrant=False)
-    x = rms_norm(x, params["final_norm"]["scale"], m["norm_eps"])
-    return cross_entropy(matmul(x, table.t()), batch["labels"], m["vocab"])
-
-
-LOSSES = {"decoder": decoder_loss, "mamba2": mamba_loss}

@@ -14,8 +14,6 @@ import math
 
 import torch
 
-from bench.reference.models import LOSSES
-
 
 def leaf_names(tree: dict, path: str = "") -> list[tuple[str, tuple]]:
     """(name, key path) of every leaf of a JAX-layout tree, block leaves
@@ -84,13 +82,13 @@ def learning_rate(opt: dict, step: int) -> float:
     return opt["lr"] * warm * (0.1 + 0.9 * 0.5 * (1.0 + math.cos(math.pi * prog)))
 
 
-def follow(params: dict, model: dict, opt: dict, batches: list[list[dict]], family: str) -> dict:
-    """Train ``params`` (a float32 tree, updated in place) through one step
-    per entry of ``batches`` (each a list of microbatches) and read: the
+def follow(params: dict, model: dict, opt: dict, batches: list[list[dict]], loss_fn) -> dict:
+    """Train ``params`` (a float32 tree, updated in place) on the family's
+    ``loss_fn(params, model, microbatch)`` through one step per entry of
+    ``batches`` (each a list of microbatches) and read: the
     steps' losses, the first step's gradient norm before clipping, each
     leaf's norm of the first clipped gradient, each leaf's change over all
     the steps. Leaves are named as ``leaf_names`` names them."""
-    loss_fn = LOSSES[family]
     leaves = flat(params)
     start = [t.detach().to("cpu", copy=True) for t in leaves]
     mu = [torch.zeros_like(t) for t in leaves]

@@ -7,8 +7,14 @@ Run from the root of a checkout. The cell is an entry of ``workloads`` in
 files ``bench/configs/<config>.json``, ``bench/traffic/<traffic>.json``
 and ``bench/limits/<config>.json``, and each metric the cell reports is
 read by ``bench/metrics/<metric>.py`` (``read(run)``: a number, or None
-where the run has nothing to read). Adding a cell, a mix or a metric adds
-files and entries; no file here changes.
+where the run has nothing to read). A configuration's ``family`` is the
+file ``bench/families/<family>.py``: its weights' layout, plain reference
+loss, model FLOPs and test sizes; the program takes every ``model`` key that
+is a field of its ``ModelConfig``. Adding a cell, a mix, a metric or a model
+family adds files and entries; no file here changes. A
+configuration of a new family is ``bench/configs/<name>.json``,
+``bench/families/<family>.py``, ``bench/limits/<name>.json`` with its
+``.readings.jsonl``, and its entries in ``BENCHMARK.json``.
 
 A run builds the job (``bench.job``) from the seed, makes its first steps
 (the reference follows them) and the mix's set-up operations, then repeats

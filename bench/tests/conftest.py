@@ -9,14 +9,6 @@ for p in (str(ROOT), str(ROOT / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-# The cells at a size the CPU runs in seconds: the published shapes' kinds
-# (GQA with a vision stub; an SSD stack with tied embeddings), tiny widths.
-TINY = {
-    "decoder": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab=300,
-                    n_frontend_tokens=4, seq_len=32),
-    "mamba2": dict(n_layers=2, d_model=32, ssm_state=8, ssm_head_dim=8, ssm_chunk=8, vocab=300, seq_len=32),
-}
-
 
 def load(kind: str, name: str) -> dict:
     return json.loads((ROOT / "bench" / kind / f"{name}.json").read_text())
@@ -34,8 +26,11 @@ OPEN = {"mamba2-1.3b.resume": {"config": "mamba2-1.3b.d8", "traffic": "resume", 
 
 
 def tiny_cell(workload: str, dtype: str = "float32"):
-    """(bench, cell, config, traffic, limits) of ``workload`` cut to the
-    tiny sizes, in ``dtype``."""
+    """(bench, cell, config, traffic, limits) of ``workload`` cut to its
+    family's tiny sizes (``TINY`` of ``bench/families/<family>.py``), in
+    ``dtype``."""
+    from bench.families import family
+
     bench = bench_json()
     if workload in OPEN:
         spec = OPEN[workload]
@@ -45,7 +40,7 @@ def tiny_cell(workload: str, dtype: str = "float32"):
                 m["workloads"].append(workload)
     cell = next(w for w in bench["workloads"] if w["name"] == workload)
     config = load("configs", cell["config"])
-    config["model"].update(TINY[config["family"]], dtype=dtype)
+    config["model"].update(family(config["family"]).TINY, dtype=dtype)
     if "checkpoint" in config:
         config["cluster"]["chunk_bytes"] = 4096
         config["checkpoint"] = {"target": 4096, "min": 2048, "max": 8192, "mask": 4095}

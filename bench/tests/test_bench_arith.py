@@ -6,6 +6,7 @@ import math
 
 import pytest
 
+from bench.families import family
 from bench.metrics import _arith as A
 from conftest import ROOT
 
@@ -51,13 +52,13 @@ def test_model_flops_by_hand():
     per_layer = 4 * 4 * 2 + 4 * 2 * 2 + 3 * 4 * 8
     # the vocabulary's 250 rows, not the 256 the program pads them to
     want = 6 * (per_layer * 3 + 4 * 250 * 2) + 3 * 2 * 4 * 2 * 6
-    assert A.model_flop_per_step(m, "decoder") == want
+    assert family("decoder").model_flop_per_step(m) == want
     m = dict(n_layers=1, d_model=2, vocab=250, ssm_expand=2, ssm_state=2, ssm_head_dim=2, ssm_chunk=2,
              seq_len=4, global_batch=1, accum=1)
     d_in, heads = 4, 2
     per_layer = 2 * (2 * d_in + 2 * 2 + heads) + d_in * 2
     ssd = 2 * (2 * 2 * 2 + 2 * 2 * heads * 2 + 2 * 2 * 2 * heads * 2) * 2
-    assert A.model_flop_per_step(m, "mamba2") == 6 * (per_layer * 4 + 2 * 250 * 4) + 3 * ssd
+    assert family("mamba2").model_flop_per_step(m) == 6 * (per_layer * 4 + 2 * 250 * 4) + 3 * ssd
 
 
 @pytest.mark.parametrize("shape", [(1, 4096, 32, 8, 128, True, 0), (1, 700, 40, 8, 128, True, 0),

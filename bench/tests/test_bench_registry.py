@@ -63,17 +63,30 @@ def test_names_units_and_cells_keep_to_the_contract():
     assert all("\n" not in layer and "\t" not in layer for layer in layers)
 
 
+def test_every_config_finds_its_family_file():
+    """Each configuration's ``family`` is a file under ``bench/families/``
+    that defines the names the harness reads."""
+    from bench.families import NAMES, family
+
+    for c in bench_json()["configs"]:
+        fam = family(load("configs", c["name"])["family"])
+        assert all(hasattr(fam, name) for name in NAMES), (c["name"], fam.__file__)
+        assert callable(fam.layout) and callable(fam.loss) and callable(fam.model_flop_per_step)
+
+
 def test_each_config_keeps_its_source_but_for_what_it_lists_as_reduced():
     """Every size the file states as published is the one run, unless the
-    file and BENCHMARK.json both list it as reduced; no width is reduced."""
+    file and BENCHMARK.json both list it as reduced; no width is reduced,
+    of any family file's ``WIDTHS``."""
+    from bench.families import HERE, family
+
+    widths = set().union(*(family(path.stem).WIDTHS for path in HERE.glob("*.py") if path.stem != "__init__"))
     for c in bench_json()["configs"]:
         cfg = load("configs", c["name"])
         assert set(cfg["reduced"]) == set(c["reduced"]), c["name"]
         for key, value in cfg["published"].items():
             want = cfg["reduced"].get(key, value)
             assert cfg["model"][key] == want, (c["name"], key)
-        widths = {"d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "ssm_state", "ssm_head_dim", "ssm_expand",
-                  "ssm_conv", "ssm_chunk", "vocab"}
         assert not widths & set(cfg["reduced"]), c["name"]
 
 

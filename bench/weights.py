@@ -4,12 +4,13 @@ weights of a configuration (a JAX-layout tree, the form the program's
 batch. Both sides are handed the same values; nothing here imports the
 program.
 
-Weights: every normally drawn leaf is a view of one flat buffer in the
-configuration's dtype, filled by one ``normal_`` call of a generator on
-the device and scaled per leaf (dense weights 1/sqrt(d_in), the embedding
-0.02, Mamba-2's convolution 0.1); norm scales are 1, biases 0, and
-Mamba-2's ``a_log``, ``dt_bias`` and ``d_skip`` are float32 constants
-(log(1..16) spread over the heads, 0 and 1).
+Weights: the leaves and their order are the family's ``layout(m)``
+(``bench/families/<family>.py``). Every normally drawn leaf is a view of
+one flat buffer in the configuration's dtype, filled by one ``normal_``
+call of a generator on the device and scaled per leaf (dense weights
+1/sqrt(d_in), the embedding 0.02); norm scales are 1, biases 0, and the
+kinds "a_log" and "f32:<value>" float32 constants (log(1..16) spread over
+the last axis, and the value).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import hashlib
 import math
 
 import torch
+
+from bench.families import family as _family
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # The batches' statistics: the share of text positions that continue their
@@ -38,46 +41,6 @@ def padded_vocab(m: dict) -> int:
     return -(-m["vocab"] // 256) * 256
 
 
-def layout(m: dict, family: str) -> list[tuple[tuple, tuple, str, float]]:
-    """(key path, shape, kind, scale) of every leaf: kind "normal" (drawn,
-    times scale), "ones", "zeros", "a_log", or "f32:<value>"."""
-    d, g, v = m["d_model"], m["n_layers"], padded_vocab(m)
-    leaves = [(("embed", "table"), (v, d), "normal", 0.02), (("final_norm", "scale"), (d,), "ones", 0.0)]
-    b = ("blocks", 0)
-    if family == "decoder":
-        h, kv, hd, f = m["n_heads"], m["n_kv_heads"], m["head_dim"], m["d_ff"]
-        leaves.append((("lm_head", "w"), (d, v), "normal", d ** -0.5))
-        leaves += [
-            ((*b, "norm1", "scale"), (g, d), "ones", 0.0),
-            ((*b, "attn", "wq", "w"), (g, d, h * hd), "normal", d ** -0.5),
-            ((*b, "attn", "wk", "w"), (g, d, kv * hd), "normal", d ** -0.5),
-            ((*b, "attn", "wv", "w"), (g, d, kv * hd), "normal", d ** -0.5),
-            ((*b, "attn", "wo", "w"), (g, h * hd, d), "normal", (h * hd) ** -0.5),
-            ((*b, "norm2", "scale"), (g, d), "ones", 0.0),
-            ((*b, "ffn", "gate", "w"), (g, d, f), "normal", d ** -0.5),
-            ((*b, "ffn", "up", "w"), (g, d, f), "normal", d ** -0.5),
-            ((*b, "ffn", "down", "w"), (g, f, d), "normal", f ** -0.5),
-        ]
-    elif family == "mamba2":
-        d_in = m["ssm_expand"] * d
-        n, heads, k = m["ssm_state"], d_in // m["ssm_head_dim"], m["ssm_conv"]
-        mx = (*b, "mixer")
-        leaves += [
-            ((*b, "norm1", "scale"), (g, d), "ones", 0.0),
-            ((*mx, "in_proj", "w"), (g, d, 2 * d_in + 2 * n + heads), "normal", d ** -0.5),
-            ((*mx, "conv_w"), (g, k, d_in + 2 * n), "normal", 0.1),
-            ((*mx, "conv_b"), (g, d_in + 2 * n), "zeros", 0.0),
-            ((*mx, "a_log"), (g, heads), "a_log", 0.0),
-            ((*mx, "dt_bias"), (g, heads), "f32:0", 0.0),
-            ((*mx, "d_skip"), (g, heads), "f32:1", 0.0),
-            ((*mx, "norm_scale"), (g, d_in), "ones", 0.0),
-            ((*mx, "out_proj", "w"), (g, d_in, d), "normal", d_in ** -0.5),
-        ]
-    else:
-        raise ValueError(f"unknown family {family!r}")
-    return leaves
-
-
 def _put(tree: dict, path: tuple, value) -> None:
     for k in path[:-1]:
         if isinstance(k, int):
@@ -90,12 +53,13 @@ def _put(tree: dict, path: tuple, value) -> None:
 
 
 def make_tree(m: dict, family: str, seed: int, device, dtype: torch.dtype | None = None) -> dict:
-    """The weights of configuration ``m`` drawn from ``seed`` on ``device``
-    in ``dtype`` (the configuration's own by default). Block leaves are
-    stacked on a leading layer axis; ``blocks`` is a one-entry tuple, the
-    tail empty."""
+    """The weights of configuration ``m`` of ``family`` drawn from ``seed``
+    on ``device`` in ``dtype`` (the configuration's own by default). Block
+    leaves are stacked on a leading layer axis; ``blocks`` is a tuple of the
+    stacks the layout names, the tail empty. A layout's kind is "normal"
+    (drawn, times its scale), "ones", "zeros", "a_log" or "f32:<value>"."""
     dtype = dtype or DTYPES[m["dtype"]]
-    spec = layout(m, family)
+    spec = _family(family).layout(m)
     sizes = [math.prod(shape) for _, shape, kind, _ in spec if kind == "normal"]
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, "weights"))
     flat = torch.empty((sum(sizes),), dtype=dtype, device=device).normal_(generator=gen)
