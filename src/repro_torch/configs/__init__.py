@@ -2,6 +2,7 @@
 
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec, shape_applicable
 from repro_torch.configs.gemma3_12b import CONFIG as _gemma3
+from repro_torch.configs.granite_4_0_h_small import CONFIG as _granite
 from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as _llama4
 from repro_torch.configs.llava_next_mistral_7b import CONFIG as _llava
 from repro_torch.configs.mamba2_1_3b import CONFIG as _mamba2
@@ -25,6 +26,7 @@ ARCHS: dict[str, ModelConfig] = {
         _qwen_moe,
         _whisper,
         _llava,
+        _granite,
     ]
 }
 

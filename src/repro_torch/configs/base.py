@@ -1,7 +1,11 @@
 """Model/runtime configuration schema + the assigned input-shape sets.
 
-A copy of the JAX package's ``configs/base.py``; only ``param_dtype`` differs
-(a torch dtype, ``torch.bfloat16`` by default)."""
+A copy of the JAX package's ``configs/base.py``; ``param_dtype`` differs (a
+torch dtype, ``torch.bfloat16`` by default), and the port adds the fields of
+the architectures it has that the JAX package has not (Granite-4.0-H's hybrid
+Mamba-2/MoE blocks, its dropless route over a share of the experts, NoPE
+attention and its muP scalars). Their defaults leave every other
+architecture's computation as it was."""
 
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ class ModelConfig:
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     # layer pattern: repeating group of block kinds
-    #   attn_global | attn_local | mla | moe | mamba2 | rglru
+    #   attn_global | attn_local | mla | moe | mamba2 | mamba2_moe | rglru
+    # (mamba2_moe: the Mamba-2 mixer, then the routed FFN of moe behind norm2)
     block_pattern: tuple[str, ...] = ("attn_global",)
     window: int = 0                   # sliding window for attn_local
     # MLA (minicpm3)
@@ -46,12 +51,21 @@ class ModelConfig:
     shared_d_ff: int = 0
     capacity_factor: float = 1.25
     moe_group: int = 1024
+    # "gshard": capacity dispatch over token groups (drops past capacity);
+    # "dropless": every (token, choice) on a held expert is computed
+    moe_route: str = "gshard"
+    # experts held here under expert parallelism (dropless only): experts
+    # first_held_expert .. + n_held_experts - 1 of the router's n_experts;
+    # 0 holds them all (HF's num_local_experts is the router's n_experts)
+    n_held_experts: int = 0
+    first_held_expert: int = 0
     # SSM / recurrence
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     ssm_conv: int = 4
     ssm_chunk: int = 128
+    ssm_norm_eps: float = 1e-6        # the Mamba-2 mixer's gated RMSNorm
     rglru_width: int = 0
     rglru_blocks: int = 10
     # encoder-decoder (whisper)
@@ -64,6 +78,16 @@ class ModelConfig:
     sub_quadratic: bool = False       # may run long_500k
     has_decode: bool = True
     param_dtype: Any = torch.bfloat16
+    # attention: "rope" or "nope" (no position embedding); the softmax
+    # scale, 0 -> 1/sqrt(head_dim)
+    position_embedding: str = "rope"
+    attn_scale: float = 0.0
+    # muP scalars (Granite): the embedding times embedding_multiplier, each
+    # layer's branch outputs times residual_multiplier before they are
+    # added, the logits divided by logits_scaling; 1 is skipped, not applied
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     # training
     remat: str = "full"               # full | dots | none
     # dry-run costing: run the group loop as a Python loop instead of
@@ -96,6 +120,11 @@ class ModelConfig:
         return ((self.vocab + 255) // 256) * 256
 
     @property
+    def held_experts(self) -> range:
+        """The router's experts whose products this model computes."""
+        return range(self.first_held_expert, self.first_held_expert + (self.n_held_experts or self.n_experts))
+
+    @property
     def pattern_len(self) -> int:
         return len(self.block_pattern)
 
@@ -112,9 +141,15 @@ class ModelConfig:
     def validate(self) -> "ModelConfig":
         assert self.n_layers >= 1 and self.d_model > 0
         for k in self.block_pattern:
-            assert k in {"attn_global", "attn_local", "mla", "moe", "mamba2", "rglru"}, k
-        if "moe" in self.block_pattern:
+            assert k in {"attn_global", "attn_local", "mla", "moe", "mamba2", "mamba2_moe", "rglru"}, k
+        if {"moe", "mamba2_moe"} & set(self.block_pattern):
             assert self.n_experts > 0 and self.top_k > 0 and self.expert_d_ff > 0
+            assert self.moe_route in ("gshard", "dropless"), self.moe_route
+            assert self.moe_route == "dropless" or not (self.n_held_experts or self.first_held_expert)
+            assert self.held_experts.stop <= self.n_experts, (self.held_experts, self.n_experts)
+        if "mamba2_moe" in self.block_pattern:
+            assert self.ssm_state > 0
+        assert self.position_embedding in ("rope", "nope")
         if "mla" in self.block_pattern:
             assert self.kv_lora_rank > 0
         if "mamba2" in self.block_pattern:
@@ -145,6 +180,8 @@ class ModelConfig:
             qk_rope_head_dim=8 if self.qk_rope_head_dim else 0,
             v_head_dim=16 if self.v_head_dim else 0,
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            n_held_experts=min(self.n_held_experts, 2),
+            first_held_expert=0,
             top_k=min(self.top_k, 2) if self.top_k else 0,
             n_shared_experts=min(self.n_shared_experts, 1),
             expert_d_ff=64 if self.expert_d_ff else 0,

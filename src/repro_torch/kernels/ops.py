@@ -65,8 +65,9 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
-    """Fused attention, ``scale = 1/sqrt(dqk)``. Returns (B, Sq, H, dv).
+    """Fused attention, ``scale`` 1/sqrt(dqk) unless given. Returns (B, Sq, H, dv).
 
     A CUDA tensor runs the hand-written kernel (``csrc/flash_attn.cu``) or
     raises; a CPU tensor takes the plain chunked attention. Under grad the
@@ -77,7 +78,7 @@ def flash_attention(
     where v's head dim is not q's. The JAX package's ``use_pallas`` switch
     and its 24k ``Skv`` cap (a TPU VMEM limit) are gone: the kernel
     streams K/V and takes any length."""
-    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
     _count_launch("flash")  # after the call: a refused launch is not counted
     return out
 

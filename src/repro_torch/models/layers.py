@@ -200,6 +200,8 @@ class AttnSpec:
     impl: str = "dense"        # "dense" | "chunked" (flash-style, O(S*C) mem)
     q_chunk: int = 2048
     kv_chunk: int = 1024
+    rope: bool = True          # False: no position embedding (NoPE)
+    scale: float = 0.0         # softmax scale; 0 -> 1/sqrt(head_dim)
 
 
 def init_attention(gen, s: AttnSpec, dtype, device=None) -> Attention:
@@ -321,7 +323,7 @@ def mha(
     q = unflatten(dense(p.wq, x), -1, (s.n_heads, s.head_dim))
     k = unflatten(dense(p.wk, src), -1, (s.n_kv_heads, s.head_dim))
     v = unflatten(dense(p.wv, src), -1, (s.n_kv_heads, s.head_dim))
-    if use_rope:
+    if use_rope and s.rope:
         q = apply_rope(q, positions, s.rope_theta)
         kpos = positions if kv_positions is None else kv_positions
         k = apply_rope(k, kpos, s.rope_theta)
@@ -335,7 +337,7 @@ def mha(
             raise ValueError(f"the flash kernel takes mask_offset 0 only, got {mask_offset}")
 
         def core(q, k, v):
-            return ops.flash_attention(q, k, v, causal=s.causal, window=s.window).to(x.dtype)
+            return ops.flash_attention(q, k, v, causal=s.causal, window=s.window, scale=s.scale or None).to(x.dtype)
     elif s.impl == "chunked" and kv_x is None:
         def core(q, k, v):
             qg = q.reshape(*q.shape[:2], k.shape[2], rep, s.head_dim)
@@ -343,14 +345,14 @@ def mha(
                 qg, k, v,
                 causal=s.causal, window=s.window, mask_offset=mask_offset,
                 q_chunk=s.q_chunk, kv_chunk=s.kv_chunk,
-                scale=1.0 / math.sqrt(s.head_dim),
+                scale=s.scale or 1.0 / math.sqrt(s.head_dim),
             )
             return o.to(x.dtype).flatten(2, 3)
     else:
         def core(q, k, v):
             qg = q.reshape(*q.shape[:2], k.shape[2], rep, s.head_dim)
             scores = torch.einsum("bqkrh,bskh->bkrqs", qg, k).float()
-            scores = scores / math.sqrt(s.head_dim)
+            scores = scores * s.scale if s.scale else scores / math.sqrt(s.head_dim)
             if kv_x is None:  # self-attention mask
                 scores = scores + _attn_mask(sq, skv, mask_offset, s.window, s.causal, q.device)
             w = torch.softmax(scores, dim=-1).to(x.dtype)
@@ -402,7 +404,7 @@ def mha_decode(
     q = unflatten(dense(p.wq, x), -1, (s.n_heads, s.head_dim))
     k = unflatten(dense(p.wk, x), -1, (s.n_kv_heads, s.head_dim))
     v = unflatten(dense(p.wv, x), -1, (s.n_kv_heads, s.head_dim))
-    if use_rope:
+    if use_rope and s.rope:
         pvec = torch.full((b, one), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, pvec, s.rope_theta)
         k = apply_rope(k, pvec, s.rope_theta)
@@ -414,7 +416,7 @@ def mha_decode(
     rep = s.n_heads // s.n_kv_heads
     qg = unflatten(q, 2, (s.n_kv_heads, rep))
     scores = torch.einsum("bqkrh,bskh->bkrqs", qg.float(), _kv_dequant(ck).float())
-    scores = scores / math.sqrt(s.head_dim)
+    scores = scores * s.scale if s.scale else scores / math.sqrt(s.head_dim)
     ki = torch.arange(smax, device=x.device)
     ok = ki <= pos
     if s.window > 0:

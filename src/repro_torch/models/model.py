@@ -115,10 +115,15 @@ def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
             params = L.quantize_dense_weights(params)
         return params
 
+    def _embed(params, tokens):
+        """Token embeddings, times the muP ``embedding_multiplier`` (skipped at 1)."""
+        x = L.embed(params.embed, tokens)
+        return x if cfg.embedding_multiplier == 1.0 else x * cfg.embedding_multiplier
+
     def _embed_inputs(params, batch):
         """Token (+ frontend) embeddings and positions."""
         tokens = batch["tokens"]
-        x = L.embed(params.embed, tokens)
+        x = _embed(params, tokens)
         if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
         b, s, _ = x.shape
@@ -145,7 +150,7 @@ def _build_decoder(cfg: ModelConfig, dev: torch.device) -> Model:
 
     @torch.no_grad()
     def decode_step(params, caches, token, pos):
-        x = L.embed(params.embed, token)
+        x = _embed(params, token)
         hidden, caches = T.decoder_decode(params, cfg, caches, x, int(pos))
         logits = T.logits_from_hidden(params, cfg, hidden)
         return logits, caches

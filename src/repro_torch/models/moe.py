@@ -1,9 +1,13 @@
-"""Mixture-of-Experts FFN with shared + routed experts (Qwen-MoE / Llama-4).
+"""Mixture-of-Experts FFN with shared + routed experts (Qwen-MoE / Llama-4,
+Granite-4.0-H).
 
 A port of the JAX package's ``models/moe.py``: GShard capacity-based
 dispatch over token groups (tokens past an expert's capacity are dropped),
 top-k routing with the Switch load-balancing aux loss, and an optional
-shared FFN beside the routed experts.
+shared FFN beside the routed experts. The port adds a dropless route
+(``MoESpec.route == "dropless"``, ``dropless_ffn``), which the JAX package
+has not: every (token, choice) is computed, and the layer holds a share of
+the router's experts, as one rank of expert parallelism does.
 
 Parameters live in an ``MoE`` module named as the JAX tree: ``router`` (a
 ``Dense``), ``experts.{gate,up,down}`` as ``(E, D, F)`` / ``(E, F, D)``
@@ -38,8 +42,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch import obs
 from repro_torch.distributed.sharding import local_region, place_as, replicated_like, shard
-from repro_torch.models.layers import FFN, Dense, _act_fn, _normal, _param, dense, ffn, init_dense, init_ffn
+from repro_torch.models.layers import (
+    FFN, Dense, _act_fn, _normal, _param, dense, ffn, init_dense, init_ffn, raw_weight,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +61,13 @@ class MoESpec:
     act: str = "silu"
     moe_group: int = 1024         # tokens per dispatch group; capacity and
                                   # dispatch-einsum FLOPs scale with it
+    route: str = "gshard"         # "gshard" | "dropless"
+    first_expert: int = 0         # the experts held (dropless): first_expert ..
+    n_held: int = 0               # + n_held - 1 of the router's; 0: all
+
+    @property
+    def held(self) -> int:
+        return self.n_held or self.n_experts
 
 
 class Experts(nn.Module):
@@ -69,9 +83,11 @@ class MoE(nn.Module):
 
 
 def init_moe(gen, s: MoESpec, dtype, device=None) -> MoE:
-    e, d, f = s.n_experts, s.d_model, s.expert_d_ff
+    """The router is ``n_experts`` wide; the expert arrays hold ``held``."""
+    d, f = s.d_model, s.expert_d_ff
+    e = s.held if s.route == "dropless" else s.n_experts
     scale = 1.0 / math.sqrt(d)
-    router = init_dense(gen, d, e, dtype, device=device)
+    router = init_dense(gen, d, s.n_experts, dtype, device=device)
     experts = Experts(
         _normal(gen, (e, d, f), scale, dtype, device),
         _normal(gen, (e, d, f), scale, dtype, device),
@@ -85,8 +101,15 @@ def init_moe(gen, s: MoESpec, dtype, device=None) -> MoE:
 
 def _routing(p: MoE, s: MoESpec, x2d: torch.Tensor):
     """x2d: (T, D) -> top-k expert ids (T, k) int64, their renormalized
-    weights in x's dtype, and the Switch aux load-balance loss."""
-    logits = dense(p.router, x2d).float()                           # (T, E)
+    weights in x's dtype, and the Switch aux load-balance loss. The dropless
+    route takes its logits from a float32 product: bf16 logits tie often
+    (8 bits of mantissa over 72 experts), and the tie rule below would then
+    favour the lowest expert ids, the first rank's under expert
+    parallelism."""
+    if s.route == "dropless":
+        logits = x2d.float() @ raw_weight(p.router, torch.float32)  # (T, E)
+    else:
+        logits = dense(p.router, x2d).float()                       # (T, E)
     probs = torch.softmax(logits, dim=-1)
     # lower index first among equal probabilities, as jax.lax.top_k
     weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -142,10 +165,13 @@ def _experts_of(w: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
 def moe_ffn(p: MoE, s: MoESpec, x: torch.Tensor):
     """x: (B, S, D) -> (y, aux_loss).
 
-    GShard capacity-based dispatch over token groups of ``group_size``:
-    capacity C = ceil(k * g * cf / E) scales with the group size, which
-    keeps the dispatch FLOPs (T*E*C*D ~ T*g*k*cf*D) a small fraction of
-    the experts' FLOPs."""
+    ``route == "dropless"`` runs ``dropless_ffn``. Otherwise GShard
+    capacity-based dispatch over token groups of ``group_size``: capacity
+    C = ceil(k * g * cf / E) scales with the group size, which keeps the
+    dispatch FLOPs (T*E*C*D ~ T*g*k*cf*D) a small fraction of the experts'
+    FLOPs."""
+    if s.route == "dropless":
+        return dropless_ffn(p, s, x)
     b, sl, d = x.shape
     t = b * sl
     g = group_size(s, t)
@@ -182,4 +208,89 @@ def moe_ffn(p: MoE, s: MoESpec, x: torch.Tensor):
 
     if p.shared is not None:
         y = y + ffn(p.shared, x, s.act)
+    return y, aux
+
+
+# ------------------------------------------------------------- dropless ----
+class GroupedSwiGLU(torch.autograd.Function):
+    """The held experts' SwiGLU over rows sorted by expert: ``y = (silu(x
+    Wg_e) * (x Wu_e)) Wd_e`` for the rows of group ``e``, rows ``offs[e-1]
+    .. offs[e] - 1`` (``offs`` int32, inclusive ends, from 0). Three grouped
+    products forward and six backward (the rows' and the weights' gradient
+    of each), each one ``torch._grouped_mm`` launch: CUTLASS's grouped GEMM
+    on a Hopper card, torch's own loop on the CPU. ``torch._grouped_mm``
+    leaves the rows past ``offs[-1]`` of a (rows, N) result unwritten; here
+    they come out 0 and take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, gate, up, down, offs):
+        g = torch._grouped_mm(x, gate, offs=offs)
+        u = torch._grouped_mm(x, up, offs=offs)
+        y = torch._grouped_mm(F.silu(g) * u, down, offs=offs)
+        valid = (torch.arange(x.shape[0], device=x.device) < offs[-1])[:, None]
+        ctx.save_for_backward(x, g, u, gate, up, down, offs, valid)
+        return torch.where(valid, y, 0)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g, u, gate, up, down, offs, valid = ctx.saved_tensors
+        dy = dy.contiguous()
+        gf = g.float()
+        sig = torch.sigmoid(gf)
+        h = F.silu(g) * u
+        dh = torch._grouped_mm(dy, down.transpose(1, 2), offs=offs).float()
+        d_down = torch._grouped_mm(h.t(), dy, offs=offs)
+        dg = (dh * u.float() * sig * (1 + gf * (1 - sig))).to(x.dtype)
+        du = (dh * gf * sig).to(x.dtype)
+        d_gate = torch._grouped_mm(x.t(), dg, offs=offs)
+        d_up = torch._grouped_mm(x.t(), du, offs=offs)
+        dx = torch._grouped_mm(dg, gate.transpose(1, 2), offs=offs)
+        dx = dx + torch._grouped_mm(du, up.transpose(1, 2), offs=offs)
+        return torch.where(valid, dx, 0), d_gate, d_up, d_down, None
+
+
+def _grad_task() -> bool:
+    """Whether autograd's backward pass is running this code (an activation
+    checkpoint's recomputation)."""
+    return torch._C._current_graph_task_id() != -1
+
+
+def dropless_ffn(p: MoE, s: MoESpec, x: torch.Tensor):
+    """x: (B, S, D) -> (y, aux_loss), no token dropped.
+
+    The router and its Switch aux loss are over all ``n_experts``; the
+    layer computes the part of the result that its held experts
+    (``first_expert`` .. + ``held`` - 1) give, and the shared expert once.
+    The T * k (token, choice) pairs are sorted by held expert (stable, so a
+    token's choices keep token order within an expert), the pairs routed
+    elsewhere last; the rows of the sorted pairs run through
+    ``GroupedSwiGLU``, where the pairs routed elsewhere lie past
+    ``offs[-1]`` and come out 0; each token's k rows are summed weighted
+    by its routing weights. Every size is T * k, whatever the routing, so
+    nothing waits for the device. Each call outside the backward pass
+    tallies the rows routed to the held experts and the largest expert's
+    (``obs.tally("moe.rows", [rows, largest])``)."""
+    b, sl, d = x.shape
+    t, k, e = b * sl, s.top_k, s.held
+    x2d = x.reshape(t, d)
+    with obs.range("moe.route"):
+        ids, weights, aux = _routing(p, s, x2d)
+    with obs.range("moe.permute"):
+        local = ids - s.first_expert
+        key = torch.where((local >= 0) & (local < e), local, e).reshape(t * k)
+        order = torch.sort(key, stable=True).indices
+        counts = torch.zeros((e + 1,), dtype=torch.int64, device=x.device)
+        counts.scatter_add_(0, key, torch.ones_like(key))
+        offs = torch.cumsum(counts[:e], 0).to(torch.int32)
+        pos = torch.empty_like(order).scatter_(0, order, torch.arange(t * k, device=x.device))
+        xs = x2d[order // k]                                          # (T*k, D), sorted rows
+    if not _grad_task():
+        obs.tally("moe.rows", torch.stack([counts[:e].sum(), counts[:e].max()]))
+    with obs.range("moe.experts"):
+        ys = GroupedSwiGLU.apply(xs, p.experts.gate, p.experts.up, p.experts.down, offs)
+    with obs.range("moe.combine"):
+        y = torch.bmm(weights[:, None, :], ys[pos].view(t, k, d))[:, 0].reshape(b, sl, d)
+    if p.shared is not None:
+        with obs.range("moe.shared"):
+            y = y + ffn(p.shared, x, s.act)
     return y, aux

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.distributed.sharding import flatten, place_as, replicated_like, shard, unflatten
 from repro_torch.models.layers import Dense, _normal, _param, dense, init_dense
 
@@ -56,6 +57,7 @@ class MambaSpec:
     d_conv: int = 4
     chunk: int = 128           # Q (SSD chunk length)
     n_groups: int = 1          # G (B/C groups)
+    norm_eps: float = 1e-6     # the gated RMSNorm's
 
     @property
     def d_inner(self) -> int:
@@ -117,7 +119,13 @@ def mamba_prefill(p: Mamba2, s: MambaSpec, u: torch.Tensor, return_cache: bool =
     """u: (B,S,D) -> (B,S,D) via chunked SSD; S must be a multiple of
     ``chunk`` (ValueError otherwise). With ``return_cache`` also (the last
     state (B,H,N,P) fp32, the conv window (B,K-1,C): the pre-activation
-    projection of the last K-1 positions)."""
+    projection of the last K-1 positions). A profiler sees the call as the
+    range ``ssm.mamba2``."""
+    with obs.range("ssm.mamba2"):
+        return _mamba_prefill(p, s, u, return_cache)
+
+
+def _mamba_prefill(p: Mamba2, s: MambaSpec, u: torch.Tensor, return_cache: bool):
     bsz, sl, _ = u.shape
     q = s.chunk
     if sl % q:
@@ -167,7 +175,7 @@ def mamba_prefill(p: Mamba2, s: MambaSpec, u: torch.Tensor, return_cache: bool =
     y = (y_intra + y_inter).reshape(bsz, sl, h, pdim)
     y = y + p.d_skip[None, None, :, None] * xf.reshape(bsz, sl, h, pdim)
     y = y.reshape(bsz, sl, s.d_inner).to(u.dtype)
-    y = _gated_norm(p.norm_scale, y, z)
+    y = _gated_norm(p.norm_scale, y, z, s.norm_eps)
     out = dense(p.out_proj, y)
     if return_cache:
         return out, (hstate, xbc_raw[:, -(s.d_conv - 1):, :])
@@ -197,7 +205,7 @@ def mamba_decode(p: Mamba2, s: MambaSpec, u: torch.Tensor, state: torch.Tensor, 
     y = torch.einsum("bm,bhmp->bhp", cg.float(), state)
     y = y + p.d_skip[None, :, None] * x.float()
     y = y.reshape(bsz, 1, s.d_inner).to(u.dtype)
-    y = _gated_norm(p.norm_scale, y, z)
+    y = _gated_norm(p.norm_scale, y, z, s.norm_eps)
     return dense(p.out_proj, y), state, conv_state
 
 

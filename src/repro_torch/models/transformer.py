@@ -7,7 +7,11 @@ RecurrentGemma) and ``rglru`` (the RG-LRU recurrence, ``models/ssm.py``:
 RecurrentGemma) and ``mla`` (multi-head latent attention, ``models/mla.py``:
 MiniCPM3), each with an FFN when ``d_ff``; ``moe`` (global attention,
 then the routed FFN of ``models/moe.py`` behind ``norm2``: Qwen1.5-MoE,
-Llama-4-Scout) and ``mamba2`` (the SSD mixer alone: Mamba2).
+Llama-4-Scout) and ``mamba2`` (the SSD mixer alone: Mamba2). The port adds
+``mamba2_moe`` (the SSD mixer, then the routed FFN behind ``norm2``:
+Granite-4.0-H, whose attention layers are ``moe`` blocks without rotary
+embedding), and the config's muP residual multiplier, which scales each
+branch's output before its residual add (skipped at 1).
 
 The JAX package stacks the parameters of all groups of the repeating
 ``block_pattern`` on a leading axis and scans over them; here the blocks are
@@ -38,7 +42,7 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
-_PORTED = ("attn_global", "attn_local", "mla", "moe", "mamba2", "rglru")
+_PORTED = ("attn_global", "attn_local", "mla", "moe", "mamba2", "mamba2_moe", "rglru")
 
 
 class TensorSpec(NamedTuple):
@@ -77,6 +81,8 @@ def _attn_spec(cfg: ModelConfig, local: bool) -> L.AttnSpec:
         impl=cfg.attn_impl,
         q_chunk=cfg.attn_q_chunk,
         kv_chunk=cfg.attn_kv_chunk,
+        rope=cfg.position_embedding == "rope",
+        scale=cfg.attn_scale,
     )
 
 
@@ -108,6 +114,9 @@ def _moe_spec(cfg: ModelConfig) -> MOE.MoESpec:
         capacity_factor=cfg.capacity_factor,
         moe_group=cfg.moe_group,
         act=cfg.act,
+        route=cfg.moe_route,
+        first_expert=cfg.first_held_expert,
+        n_held=cfg.n_held_experts,
     )
 
 
@@ -119,6 +128,7 @@ def _mamba_spec(cfg: ModelConfig) -> SSM.MambaSpec:
         expand=cfg.ssm_expand,
         d_conv=cfg.ssm_conv,
         chunk=cfg.ssm_chunk,
+        norm_eps=cfg.ssm_norm_eps,
     )
 
 
@@ -133,9 +143,9 @@ def _rglru_spec(cfg: ModelConfig) -> SSM.RGLRUSpec:
 
 class Block(nn.Module):
     """One block: ``norm1``, then ``attn`` (the attention kinds and
-    ``moe``; an ``MLA`` for ``mla``) or ``mixer`` (``rglru``, ``mamba2``);
-    behind ``norm2`` the routed ``moe`` FFN, or with ``d_ff`` an FFN (not
-    for ``mamba2``)."""
+    ``moe``; an ``MLA`` for ``mla``) or ``mixer`` (``rglru``, ``mamba2``,
+    ``mamba2_moe``); behind ``norm2`` the routed ``moe`` FFN (``moe``,
+    ``mamba2_moe``), or with ``d_ff`` an FFN (not for ``mamba2``)."""
 
     def __init__(self, norm1: L.RMSNorm, attn: L.Attention | MLA.MLA | None,
                  norm2: L.RMSNorm | None = None, ffn: L.FFN | None = None,
@@ -166,6 +176,10 @@ def init_block(gen, cfg: ModelConfig, kind: str, device=None) -> Block:
     attn = mixer = None
     if kind == "mamba2":  # the mamba2 stack has no separate FFN (d_ff == 0)
         return Block(norm1, None, mixer=SSM.init_mamba(gen, _mamba_spec(cfg), dt, device))
+    if kind == "mamba2_moe":
+        return Block(norm1, None, L.init_rms_norm(cfg.d_model, dt, device),
+                     mixer=SSM.init_mamba(gen, _mamba_spec(cfg), dt, device),
+                     moe=MOE.init_moe(gen, _moe_spec(cfg), dt, device))
     if kind == "rglru":
         mixer = SSM.init_rglru(gen, _rglru_spec(cfg), dt, device)
     elif kind == "mla":
@@ -200,7 +214,7 @@ def block_fwd(p: Block, cfg: ModelConfig, kind: str, x, positions, want_cache: b
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rms_norm(p.norm1, x, cfg.norm_eps)
     cache = None
-    if kind in ("rglru", "mamba2"):
+    if kind in ("rglru", "mamba2", "mamba2_moe"):
         prefill, spec = (SSM.rglru_prefill, _rglru_spec(cfg)) if kind == "rglru" \
             else (SSM.mamba_prefill, _mamba_spec(cfg))
         if want_cache:
@@ -225,13 +239,19 @@ def block_fwd(p: Block, cfg: ModelConfig, kind: str, x, positions, want_cache: b
                 else {"k": _pad_seq(k, smax), "v": _pad_seq(v, smax)}
         else:
             y = L.mha(p.attn, spec, h, positions)
-    x = x + y
-    if kind == "moe":
+    x = x + _branch(cfg, y)
+    if p.moe is not None:
         y2, aux = MOE.moe_ffn(p.moe, _moe_spec(cfg), L.rms_norm(p.norm2, x, cfg.norm_eps))
-        return x + y2, cache, aux
+        return x + _branch(cfg, y2), cache, aux
     if p.ffn is not None:
-        x = x + L.ffn(p.ffn, L.rms_norm(p.norm2, x, cfg.norm_eps), cfg.act)
+        x = x + _branch(cfg, L.ffn(p.ffn, L.rms_norm(p.norm2, x, cfg.norm_eps), cfg.act))
     return x, cache, aux
+
+
+def _branch(cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
+    """A branch's output as its residual add takes it: times the muP
+    ``residual_multiplier``, which is skipped where it is 1."""
+    return y if cfg.residual_multiplier == 1.0 else y * cfg.residual_multiplier
 
 
 def _ring_cache_from_prefill(cfg: ModelConfig, k, v) -> dict[str, torch.Tensor]:
@@ -274,18 +294,18 @@ def block_decode(p: Block, cfg: ModelConfig, kind: str, x, cache, pos: int):
     elif kind == "mla":
         y, ckv, kr = MLA.mla_decode(p.attn, _mla_spec(cfg), h, cache["ckv"], cache["kr"], pos)
         cache = {"ckv": ckv, "kr": kr}
-    elif kind == "mamba2":
+    elif kind in ("mamba2", "mamba2_moe"):
         y, st, cv = SSM.mamba_decode(p.mixer, _mamba_spec(cfg), h, cache["state"], cache["conv"])
         cache = {"state": st, "conv": cv}
     else:
         y, st, cv = SSM.rglru_decode(p.mixer, _rglru_spec(cfg), h, cache["state"], cache["conv"])
         cache = {"state": st, "conv": cv}
-    x = x + y
-    if kind == "moe":
+    x = x + _branch(cfg, y)
+    if p.moe is not None:
         y2, _ = MOE.moe_ffn(p.moe, _moe_spec(cfg), L.rms_norm(p.norm2, x, cfg.norm_eps))
-        return x + y2, cache
+        return x + _branch(cfg, y2), cache
     if p.ffn is not None:
-        x = x + L.ffn(p.ffn, L.rms_norm(p.norm2, x, cfg.norm_eps), cfg.act)
+        x = x + _branch(cfg, L.ffn(p.ffn, L.rms_norm(p.norm2, x, cfg.norm_eps), cfg.act))
     return x, cache
 
 
@@ -335,7 +355,7 @@ def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, smax: int, dtype):
     if kind == "mla":  # the latent caches keep the model dtype under kv_cache_quant, as in the reference
         return {"ckv": TensorSpec((batch, smax, cfg.kv_lora_rank), dtype),
                 "kr": TensorSpec((batch, smax, cfg.qk_rope_head_dim), dtype)}
-    if kind == "mamba2":
+    if kind in ("mamba2", "mamba2_moe"):
         s = _mamba_spec(cfg)
         return {
             "state": TensorSpec((batch, s.n_heads, s.d_state, s.head_dim), torch.float32),
@@ -378,7 +398,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _remat(cfg: ModelConfig, fn):
     """``fn`` under the activation checkpointing ``cfg.remat`` names:
     "none" keeps every activation, "dots" recomputes all but the saved
-    products in the backward pass, "full" recomputes the whole group."""
+    products in the backward pass, "full" recomputes the whole block."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "dots":
@@ -391,22 +411,21 @@ def _remat(cfg: ModelConfig, fn):
 
 def decoder_hidden(params: DecoderLM, cfg: ModelConfig, x, positions):
     """Training forward through all blocks. Returns (hidden, aux_loss).
-    Each group of ``block_pattern`` runs under ``_remat``; the tail blocks
-    run as they are, as in the reference."""
+    Each block of the repeating groups runs under its own ``_remat`` (a
+    long pattern's group under one checkpoint would hold all its layers'
+    activations at once in the backward pass); the tail blocks run as they
+    are, as in the reference."""
     pl = cfg.pattern_len
 
-    def group_body(x, aux, *blocks):
+    def layer_body(x, aux, blk, kind):
         x = shard(x, "batch", "residual_seq", None)
-        for blk, kind in zip(blocks, cfg.block_pattern):
-            x, _, a = block_fwd(blk, cfg, kind, x, positions, want_cache=False)
-            aux = aux + a
-        x = shard(x, "batch", "residual_seq", None)
-        return x, aux
+        x, _, a = block_fwd(blk, cfg, kind, x, positions, want_cache=False)
+        return shard(x, "batch", "residual_seq", None), aux + a
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    body = _remat(cfg, group_body)
-    for g in range(cfg.n_groups):
-        x, aux = body(x, aux, *params.blocks[g * pl : (g + 1) * pl])
+    body = _remat(cfg, layer_body)
+    for i in range(cfg.n_groups * pl):
+        x, aux = body(x, aux, params.blocks[i], cfg.block_pattern[i % pl])
     for i, kind in enumerate(cfg.tail_blocks):
         x, _, a = block_fwd(params.tail[i], cfg, kind, x, positions, want_cache=False)
         aux = aux + a
@@ -451,9 +470,12 @@ def decoder_decode(params: DecoderLM, cfg: ModelConfig, caches, x, pos: int):
 
 
 def logits_from_hidden(params: DecoderLM, cfg: ModelConfig, hidden):
+    """The head's logits, divided by the muP ``logits_scaling`` (skipped at 1)."""
     if cfg.tie_embeddings:
-        return L.unembed(params.embed, hidden)
-    return shard(L.dense(params.lm_head, hidden), "batch", "seq", "act_vocab")
+        logits = L.unembed(params.embed, hidden)
+    else:
+        logits = shard(L.dense(params.lm_head, hidden), "batch", "seq", "act_vocab")
+    return logits if cfg.logits_scaling == 1.0 else logits / cfg.logits_scaling
 
 
 def decoder_cache_specs(cfg: ModelConfig, batch: int, smax: int):

@@ -19,8 +19,15 @@ launched inside it to.
 With no profiler recording a span costs a few microseconds and a range
 one check.
 
+``tally(name, value)`` keeps a device quantity of each call (a 0-d or 1-d
+tensor) in a ring of ``TALLY_CAPACITY`` slots on the tensor's device beside
+the call's host time: recording it enqueues one copy and never waits for
+the device; ``tallies(name)`` reads the ring back (one wait) after the
+fact.
+
 Names are dotted by layer: ``ckpt.*`` (``checkpoint/dedup_ckpt.py``),
-``cluster.*`` (``core/``), ``optim.*``, ``kernels.*``. docs/tracing.md
+``cluster.*`` (``core/``), ``optim.*``, ``kernels.*``, ``moe.*``
+(``models/moe.py``), ``ssm.*`` (``models/ssm.py``). docs/tracing.md
 lists them with their attributes. This module imports no torch of its
 own: the host cluster (``core/``) runs without it, and no profiler can be
 recording where torch was never imported.
@@ -156,3 +163,57 @@ def spans() -> list[Span]:
 
 def dropped() -> int:
     return LOG.dropped()
+
+
+TALLY_CAPACITY = 65536
+
+
+class Tally:
+    """Per-call values of a device quantity: slot ``i % capacity`` of a
+    ``(capacity, *value.shape)`` tensor on the values' device holds call
+    ``i``'s value, and a host ring its ``time.perf_counter()``."""
+
+    def __init__(self, capacity: int = TALLY_CAPACITY):
+        self.capacity = capacity
+        self._buf = None
+        self._times: collections.deque = collections.deque(maxlen=capacity)
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self, value) -> None:
+        with self._lock:
+            if self._buf is None or self._buf.device != value.device or self._buf.shape[1:] != value.shape:
+                self._buf = value.new_zeros((self.capacity, *value.shape))
+                self._times.clear()
+                self._n = 0
+            self._buf[self._n % self.capacity].copy_(value)
+            self._times.append(time.perf_counter())
+            self._n += 1
+
+    def values(self) -> list[tuple[float, object]]:
+        """(host time, value as a number or list) of the calls the ring
+        holds, oldest first. Waits for the device."""
+        with self._lock:
+            if self._buf is None:
+                return []
+            held = len(self._times)
+            rows = self._buf.tolist()
+            first = self._n - held
+            return [(t, rows[(first + i) % self.capacity]) for i, t in enumerate(self._times)]
+
+
+TALLIES: dict[str, Tally] = {}
+
+
+def tally(name: str, value) -> None:
+    """Record ``value`` (a tensor) as one call of tally ``name``."""
+    t = TALLIES.get(name)
+    if t is None:
+        t = TALLIES[name] = Tally()
+    t.add(value)
+
+
+def tallies(name: str) -> list[tuple[float, object]]:
+    """Tally ``name``'s (host time, value) per call; [] where none was made."""
+    t = TALLIES.get(name)
+    return t.values() if t is not None else []

@@ -3,7 +3,7 @@ and ``repro.launch.specs``.
 
 Twins of every test in ``tests/test_sharding.py`` on the port, then the
 specs of both packages side by side: the parameter specs of every arch of
-the registry at full width (divisibility by 16 decides them) on both
+the JAX package's registry at full width (divisibility by 16 decides them) on both
 production meshes, and for every ``SHAPES`` entry the rules, the batch
 shardings and the cache shardings. The JAX side runs in a subprocess with
 512 host devices and ``Auto`` meshes (``repro.launch.mesh`` builds
@@ -224,7 +224,7 @@ _JAX_SIDE = textwrap.dedent("""
 
 _PORT_SIDE = textwrap.dedent("""
     import json, sys
-    from repro_torch.configs import ARCHS, SHAPES, get_config
+    from repro_torch.configs import SHAPES, get_config
     from repro_torch.distributed.sharding import PartitionSpec as P, param_specs_for_tree
     from repro_torch.launch import dryrun, specs as SP
     from repro_torch.launch.mesh import make_production_mesh
@@ -253,7 +253,7 @@ _PORT_SIDE = textwrap.dedent("""
         return out
 
     res = {}
-    for arch in ARCHS:
+    for arch in sys.argv[2].split(","):  # the archs the JAX package has too
         model = build_model(get_config(arch), device="cpu")
         tree = model.param_specs()
         for sname, s in SHAPES.items():
@@ -280,9 +280,11 @@ def _run(code: str, *args: str) -> dict:
 @pytest.fixture(scope="module")
 def both_sides():
     pytest.importorskip("jax")
+    from repro.configs import ARCHS
+
     port = {}
     for tag in ("pod16x16", "pod2x16x16"):
-        port.update(_run(_PORT_SIDE, tag))
+        port.update(_run(_PORT_SIDE, tag, ",".join(ARCHS)))
     return _run(_JAX_SIDE), port
 
 
